@@ -1,24 +1,41 @@
 """Chip smoke test of the PyTorch/CUDA port (kslam_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--mbp 1600] [--pairs 131072]
+                          [--host-pairs 16384]
 
 Phases (each prints its own line; any failure exits non-zero):
   1. device: the card's name and power limit; a CUDA device is required.
-  2. build: the SW kernel built from kslam_tpu_torch/csrc at first use.
+  2. build: the SW kernel (nvcc, kslam_tpu_torch/csrc) and the native
+     host library (make -C csrc, the first of $CXX, g++, c++ that links
+     OpenMP), built in parallel; the library must load.
   3. kernel vs plain: the SW kernel against its plain torch twin on the
      card at the main path's shapes (B = 32768, Lq = 160, Lr = 192):
      random codes with 5% N, planted near-identical pairs, all-N rows,
      n_valid < B, three scoring parameter sets, and once through
-     align_overlaps_batch_chunked (both passes).  All outputs must be
-     exactly equal; both are timed with CUDA events after a warm-up.
+     align_overlaps_batch_chunked (both passes).  Then the sw_align_batch
+     composition (two kernel passes) against the same composition over
+     the twin at the flat window's shapes (B = 32768, Lq = Lr = 160):
+     three parameter sets, planted pairs, all-N rows.  All outputs must
+     be exactly equal; both sides are timed with CUDA events.
   4. cuda vs cpu: a small FASTA DB, taxonomy and paired FASTQ made from
-     --seed, classified by the port's CLI on cuda and on cpu; the XML,
-     _PerRead and _abbreviated files must be byte-identical and the cuda
-     run must launch the kernel.
+     --seed, run by the port's CLI on cuda and on cpu: classification;
+     --sam-file on paired reads; --just-align --sam-file on single-end
+     reads; --device-pipeline off --sam-file; --host-screen (a table
+     built by --build-host-table from one genome) with
+     --low-complexity-cutoff; and a run that crashes after chunk 2 and is
+     finished with --resume.  Every output (SAM without @PG) must be
+     byte-identical between the devices, every cuda run must launch the
+     kernel, and the resumed run must equal an uninterrupted one.
   5. real size: the 1.6 Gbp synthetic DB of the reference package's
      bench (16 genomes x 100 Mbp, ~1e8 stride-16 index k-mers) and
      262,144 planted 150 bp reads (131,072 pairs, 1% mutations) through
      the CLI on cuda; >= 99% of the pairs must get their genome's taxid.
+  6. real-size SAM: phase 5's DB and reads with --sam-file on cuda;
+     >= 99% of the planted pairs must have their R1 primary line on the
+     planted genome within 5 of the planted position.
+  7. host-object path: --device-pipeline off on phase 5's DB with the
+     first --host-pairs pairs (its pairing is Python); >= 99% of the
+     pairs classified, with kernel launches through sw_align_batch.
 The line before the last is a JSON object describing each kernel, the
 last line the contract object {"ok": true, "device": {...}}.
 """
@@ -26,6 +43,7 @@ last line the contract object {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -154,6 +172,51 @@ def phase_kernel(rng, dev):
     return worst, ms, plain_ms
 
 
+def phase_align(rng, dev):
+    """sw_align_batch (two kernel passes) vs the same composition over
+    the plain twin at the flat window's shapes; returns (max_abs_err,
+    kernel ms, plain ms)."""
+    from kslam_tpu_torch.ops import sw_cuda
+    b, l = 32768, 160
+    worst = 0
+
+    def check(name, q, r, params):
+        nonlocal worst
+        qd, rd = torch.as_tensor(q, device=dev), torch.as_tensor(r, device=dev)
+        got = sw_cuda.sw_align_batch(qd, rd, *params)
+        ref = sw_cuda.sw_align_batch_plain(qd, rd, *params)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        worst = max(worst, err)
+        log(f"  sw_align_batch {name} params={params}: max_abs_err={err} "
+            f"mean score={float(got.score.float().mean()):.2f}")
+        if err != 0:
+            raise AssertionError(f"sw_align_batch != plain on {name}")
+
+    q = rng.integers(0, 4, (b, l)).astype(np.int32)
+    planted = q.copy()
+    mut = rng.random((b, l)) < 0.02
+    planted[mut] = rng.integers(0, 4, int(mut.sum()))
+    shift = rng.integers(0, 20, b)[:, None]
+    src = np.arange(l)[None, :] - shift
+    r = np.where(src >= 0, np.take_along_axis(planted, np.maximum(src, 0),
+                                              axis=1),
+                 rng.integers(0, 4, (b, l))).astype(np.int32)
+    q[::7] = 4                                       # all-N rows
+    for params in ((2, 3, 5, 2), (1, 4, 6, 1), (3, 2, 2, 2)):
+        check("planted pairs, all-N rows", q, r, params)
+    noise = rng.integers(0, 4, (b, l)).astype(np.int32)
+    noise[rng.random((b, l)) < 0.05] = 4
+    check("random 5% N", noise, r, (2, 3, 5, 2))
+    qd, rd = torch.as_tensor(q, device=dev), torch.as_tensor(r, device=dev)
+    ms = cuda_ms(lambda: sw_cuda.sw_align_batch(qd, rd, 2, 3, 5, 2), 20)
+    plain_ms = cuda_ms(
+        lambda: sw_cuda.sw_align_batch_plain(qd, rd, 2, 3, 5, 2), 3)
+    log(f"  timing sw_align_batch B={b} Lq=Lr={l}: kernel composition "
+        f"{ms:.3f} ms, plain composition {plain_ms:.3f} ms")
+    return worst, ms, plain_ms
+
+
 def write_taxonomy(path: str, taxids) -> None:
     from kslam_tpu_torch.db.taxonomy import TaxonomyDB
     tax = TaxonomyDB()
@@ -170,12 +233,13 @@ def plant_pairs(rng, genomes, n_pairs: int, read_len: int = 150,
                 mut_rate: float = 0.01):
     """Paired reads planted from random genomes: R1 forward at pos, R2
     the reverse complement at pos + insert - read_len.  Returns
-    (r1 u8 [n, L], r2 u8 [n, L], genome index [n])."""
+    (r1 u8 [n, L], r2 u8 [n, L], genome index [n], R1 position [n])."""
     comp = np.zeros(256, np.uint8)
     for a, c in zip(b"ACGT", b"TGCA"):
         comp[a] = c
     bases4 = np.frombuffer(b"ACGT", np.uint8)
     g = rng.integers(0, len(genomes), n_pairs)
+    at = np.zeros(n_pairs, np.int64)
     r1 = np.empty((n_pairs, read_len), np.uint8)
     r2 = np.empty((n_pairs, read_len), np.uint8)
     for k, gen in enumerate(genomes):
@@ -183,12 +247,13 @@ def plant_pairs(rng, genomes, n_pairs: int, read_len: int = 150,
         ins = rng.integers(2 * read_len, 2 * read_len + 200, len(sel))
         pos = rng.integers(0, len(gen) - 2 * read_len - 200, len(sel))
         idx = np.arange(read_len)[None, :]
+        at[sel] = pos
         r1[sel] = gen[pos[:, None] + idx]
         r2[sel] = comp[gen[(pos + ins - read_len)[:, None] + idx]][:, ::-1]
     for block in (r1, r2):
         m = rng.random(block.shape) < mut_rate
         block[m] = bases4[rng.integers(0, 4, int(m.sum()))]
-    return r1, r2, g
+    return r1, r2, g, at
 
 
 def write_fastq(path: str, names, seqs) -> None:
@@ -233,11 +298,13 @@ def build_db(root: str, genomes, taxids) -> float:
     return time.perf_counter() - t0
 
 
-def run_cli(db: str, out: str, r1: str, r2: str, device: str) -> float:
+def run_cli(db: str, out: str, r1: str, r2, device: str,
+            flags=()) -> float:
+    """One port CLI run (r2 None: single-end); returns its wall seconds."""
     from kslam_tpu_torch import cli
     t0 = time.perf_counter()
     rc = cli.main(["--db", db, "--output-file", out, "--device", device,
-                   r1, r2])
+                   *flags, r1] + ([r2] if r2 else []))
     if device == "cuda":
         torch.cuda.synchronize()
     if rc != 0:
@@ -245,41 +312,133 @@ def run_cli(db: str, out: str, r1: str, r2: str, device: str) -> float:
     return time.perf_counter() - t0
 
 
-def phase_e2e_small(rng, tmp: str) -> None:
+def read_outputs(out: str, sam: bool):
+    """The files a run wrote: the SAM without @PG (the command line),
+    then XML, _PerRead and _abbreviated where present."""
+    files = []
+    if sam:
+        with open(out + ".sam", "rb") as fh:
+            files.append(b"".join(line for line in fh
+                                  if not line.startswith(b"@PG")))
+    for suf in ("", "_PerRead", "_abbreviated"):
+        if os.path.exists(out + suf):
+            with open(out + suf, "rb") as fh:
+                files.append(fh.read())
+    return files
+
+
+def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
+                    sam: bool):
+    """The same CLI run on cpu and on cuda: outputs byte-identical, the
+    kernel launched on cuda only.  Returns the cuda run's files."""
     from kslam_tpu_torch.ops import sw_cuda
+    outs = {}
+    for device in ("cpu", "cuda"):
+        out = os.path.join(tmp, f"small_{name}_{device}")
+        extra = list(flags) + (["--sam-file", out + ".sam"] if sam else [])
+        before = sw_cuda.LAUNCHES
+        secs = run_cli(db, out, r1, r2, device, extra)
+        launched = sw_cuda.LAUNCHES - before
+        outs[device] = read_outputs(out, sam)
+        log(f"  {name} {device}: {secs:.2f} s, {launched} SW kernel "
+            f"launches")
+        if (launched > 0) != (device == "cuda"):
+            raise AssertionError(f"{name}: {launched} SW launches on "
+                                 f"{device}")
+    sizes = [len(x) for x in outs["cuda"]]
+    same = outs["cpu"] == outs["cuda"]
+    log(f"  {name}: outputs byte-identical between cuda and cpu: {same} "
+        f"(bytes {sizes})")
+    if not same or not sizes or min(sizes) == 0:
+        raise AssertionError(f"{name}: cuda and cpu outputs differ or are "
+                             f"empty")
+    return outs["cuda"]
+
+
+class SimulatedCrash(Exception):
+    pass
+
+
+def phase_e2e_small(rng, tmp: str) -> None:
+    from kslam_tpu_torch import cli
+    from kslam_tpu_torch.pipeline import run as run_mod
     genomes = [np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 20_000)]
                for _ in range(4)]
     taxids = [10, 11, 12, 13]
     db = os.path.join(tmp, "small_db")
     build_db(db, genomes, taxids)
-    r1, r2, _ = plant_pairs(rng, genomes, 600)
+    r1, r2, _, _ = plant_pairs(rng, genomes, 600)
     names = [f"s{i}".encode() for i in range(len(r1))]
-    write_fastq(os.path.join(tmp, "s1.fq"), names, r1)
-    write_fastq(os.path.join(tmp, "s2.fq"), names, r2)
-    outs = {}
-    for device in ("cpu", "cuda"):
-        before = sw_cuda.LAUNCHES
-        out = os.path.join(tmp, f"small_{device}")
-        secs = run_cli(db, out, os.path.join(tmp, "s1.fq"),
-                       os.path.join(tmp, "s2.fq"), device)
-        launched = sw_cuda.LAUNCHES - before
-        outs[device] = [open(out + suf, "rb").read()
-                        for suf in ("", "_PerRead", "_abbreviated")]
-        log(f"  {device}: {secs:.2f} s, {launched} SW kernel launches")
-        if device == "cuda" and launched == 0:
-            raise AssertionError("cuda CLI run launched no SW kernel")
-        if device == "cpu" and launched != 0:
-            raise AssertionError("cpu CLI run launched the SW kernel")
-    same = outs["cpu"] == outs["cuda"]
-    sizes = [len(x) for x in outs["cuda"]]
-    log(f"  XML/_PerRead/_abbreviated byte-identical: {same} "
-        f"(bytes {sizes})")
-    if not same or sizes[1] == 0:
-        raise AssertionError("cuda and cpu CLI outputs differ")
+    s1, s2 = os.path.join(tmp, "s1.fq"), os.path.join(tmp, "s2.fq")
+    write_fastq(s1, names, r1)
+    write_fastq(s2, names, r2)
+    plain = compare_devices(tmp, db, "classify", s1, s2, [], sam=False)
+    compare_devices(tmp, db, "sam", s1, s2, [], sam=True)
+    compare_devices(tmp, db, "just_align_single_end", s1, None,
+                    ["--just-align"], sam=True)
+    compare_devices(tmp, db, "host_path", s1, s2,
+                    ["--device-pipeline", "off"], sam=True)
+
+    # host screen: a table of genome 0 (taxid 10) from --build-host-table
+    host_fa = os.path.join(tmp, "host.fa")
+    with open(host_fa, "wb") as fh:
+        fh.write(b">G0\n" + genomes[0].tobytes() + b"\n")
+    host_dir = os.path.join(tmp, "host_table")
+    if cli.main(["--build-host-table", "--output-file", host_dir,
+                 host_fa]) != 0:
+        raise AssertionError("--build-host-table failed")
+    screened = compare_devices(
+        tmp, db, "host_screen", s1, s2,
+        ["--host-screen", host_dir, "--low-complexity-cutoff", "40"],
+        sam=False)
+
+    def n_taxid(per_read: bytes, taxid: int) -> int:
+        return sum(line.endswith(b"\t%d" % taxid)
+                   for line in per_read.split(b"\n"))
+    before, after = n_taxid(plain[1], 10), n_taxid(screened[1], 10)
+    log(f"  host screen: reads of the host's taxid {before} -> {after}")
+    # reads with mutations may keep too short a host chain (the reference's
+    # cutoffs), so most, not all, host pairs go
+    if before == 0 or after > before // 2:
+        raise AssertionError("the host screen removed too few host reads")
+
+    # crash in chunk 3 of 3, then --resume; equal to an uninterrupted run
+    flags = ["--num-reads-at-once", "200", "--resume"]
+    full = compare_devices(tmp, db, "resume_uninterrupted", s1, s2, flags,
+                           sam=True)
+    out = os.path.join(tmp, "small_resumed_cuda")
+    flags = flags + ["--sam-file", out + ".sam"]
+    real = run_mod.process_chunk
+    calls = [0]
+
+    def crashing(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise SimulatedCrash("simulated crash in chunk 3")
+        return real(*args, **kwargs)
+
+    run_mod.process_chunk = crashing
+    try:
+        run_cli(db, out, s1, s2, "cuda", flags)
+        raise AssertionError("the simulated crash did not happen")
+    except SimulatedCrash:
+        pass
+    finally:
+        run_mod.process_chunk = real
+    if not os.path.exists(out + ".cursor.json"):
+        raise AssertionError("no checkpoint after the crash")
+    run_cli(db, out, s1, s2, "cuda", flags)
+    same = read_outputs(out, sam=True) == full
+    log(f"  resume: crashed in chunk 3, resumed; equal to the "
+        f"uninterrupted run: {same}")
+    if not same or os.path.exists(out + ".cursor.json"):
+        raise AssertionError("the resumed run differs from an "
+                             "uninterrupted one")
 
 
 def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
-    """The real-size run; returns the SW launch count of the main path."""
+    """The real-size run; returns (the SW launch count of the main path,
+    the DB, reads and planted truth for phases 6 and 7)."""
     from kslam_tpu_torch.ops import sw_cuda
     from kslam_tpu_torch.utils import metrics
     n_genomes = 16
@@ -291,7 +450,7 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
     db = os.path.join(tmp, "real_db")
     gen_s = time.perf_counter() - t0
     build_s = build_db(db, genomes, taxids)
-    r1, r2, g = plant_pairs(rng, genomes, n_pairs)
+    r1, r2, g, at = plant_pairs(rng, genomes, n_pairs)
     del genomes
     names = [f"r{i}".encode() for i in range(n_pairs)]
     write_fastq(os.path.join(tmp, "r1.fq"), names, r1)
@@ -328,7 +487,93 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
         raise AssertionError(f"only {frac:.4%} of planted pairs classified")
     if launches == 0:
         raise AssertionError("the main path launched no SW kernel")
+    return launches, dict(db=db, r1=os.path.join(tmp, "r1.fq"),
+                          r2=os.path.join(tmp, "r2.fq"), g=g, at=at,
+                          taxids=taxids)
+
+
+def phase_sam(ctx, tmp: str):
+    """--sam-file at real size; returns the SW launch count of the run."""
+    from kslam_tpu_torch.ops import sw_cuda
+    from kslam_tpu_torch.utils import metrics
+    metrics.reset()
+    torch.cuda.reset_peak_memory_stats()
+    sw_cuda.LAUNCHES = 0
+    out = os.path.join(tmp, "real_sam")
+    wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
+                   ["--sam-file", out + ".sam"])
+    launches = sw_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    stages = metrics.summary()
+    first = {}            # read name -> (RNAME, POS) of its R1 primary line
+    n_lines = 0
+    with open(out + ".sam") as fh:
+        for line in fh:
+            if line.startswith("@"):
+                continue
+            n_lines += 1
+            f = line.split("\t", 4)
+            flag = int(f[1])
+            if flag & 0x40 and not flag & 0x100 and f[0] not in first:
+                first[f[0]] = (f[2], int(f[3]))
+    g, at = ctx["g"], ctx["at"]
+    hits = 0
+    for i in range(len(g)):
+        rname, pos = first.get(f"r{i}", ("*", 0))
+        hits += rname == f"G{g[i]}" and abs(pos - (int(at[i]) + 1)) <= 5
+    frac = hits / len(g)
+    n_reads = 2 * len(g)
+    sec = {k: round(stages.get(k, {}).get("seconds", 0.0), 3)
+           for k in ("db_load", "to_host_pairs", "sam_output")}
+    log(f"  SAM run: {n_reads} reads, CLI wall {wall:.2f} s "
+        f"({n_reads / wall * 60:.0f} reads/min), {n_lines} SAM lines; "
+        f"stage seconds {json.dumps(sec)}")
+    log(f"  stages: {json.dumps(stages)}")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB, SW launches "
+        f"{launches}")
+    log(f"  R1 primary lines on the planted genome within 5 of the "
+        f"planted position: {hits}/{len(g)} ({frac:.4%})")
+    if frac < 0.99:
+        raise AssertionError(f"only {frac:.4%} of SAM lines placed right")
+    if launches == 0:
+        raise AssertionError("the SAM path launched no SW kernel")
     return launches
+
+
+def phase_host_path(ctx, tmp: str, n_pairs: int):
+    """--device-pipeline off on the first n_pairs pairs; returns (SW
+    launches, launches through sw_align_batch)."""
+    from kslam_tpu_torch.ops import sw_cuda
+    from kslam_tpu_torch.utils import metrics
+    metrics.reset()
+    torch.cuda.reset_peak_memory_stats()
+    sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
+    out = os.path.join(tmp, "real_host_path")
+    wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
+                   ["--device-pipeline", "off", "--num-reads", str(n_pairs)])
+    launches, through_align = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    stages = metrics.summary()
+    per_read = dict(line.split("\t") for line in
+                    open(out + "_PerRead").read().strip().split("\n"))
+    g, taxids = ctx["g"][:n_pairs], ctx["taxids"]
+    hits = sum(per_read.get(f"r{i}") == str(taxids[k])
+               for i, k in enumerate(g.tolist()))
+    frac = hits / n_pairs
+    n_reads = 2 * n_pairs
+    log(f"  host-object path: {n_reads} reads, CLI wall {wall:.2f} s "
+        f"({n_reads / wall * 60:.0f} reads/min)")
+    log(f"  stages: {json.dumps(stages)}")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB, SW launches "
+        f"{launches}, of which through sw_align_batch {through_align}")
+    log(f"  pairs classified to their genome's taxid: {hits}/{n_pairs} "
+        f"({frac:.4%})")
+    if frac < 0.99:
+        raise AssertionError(f"only {frac:.4%} of pairs classified")
+    if through_align == 0 or through_align != launches:
+        raise AssertionError("the host-object path did not launch the "
+                             "kernel through sw_align_batch")
+    return launches, through_align
 
 
 def main() -> int:
@@ -338,11 +583,15 @@ def main() -> int:
                     help="size of the real-size DB (16 genomes)")
     ap.add_argument("--pairs", type=int, default=131072,
                     help="read pairs of the real-size run")
+    ap.add_argument("--host-pairs", type=int, default=16384,
+                    help="read pairs of the host-object path run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+    from kslam_tpu_torch.io import native
     from kslam_tpu_torch.ops import sw_cuda
 
     dev = torch.device("cuda")
@@ -352,28 +601,59 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    sw_cuda.load_library()
-    log(f"phase 2 build: SW kernel built in {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        sw_build = pool.submit(sw_cuda.load_library)
+        host_build = pool.submit(native.get_lib)
+        sw_build.result()
+        host_lib = host_build.result()
+    log(f"phase 2 build: SW kernel and native host library built in "
+        f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for line in sw_cuda.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    log(f"  native host library: {native.BUILD_REPORT}")
+    if host_lib is None:
+        raise AssertionError("the native host library is absent: "
+                             f"{native.BUILD_REPORT}")
 
     rng = np.random.default_rng(args.seed)
     log("phase 3 kernel vs plain twin on the card")
     err, ms, plain_ms = phase_kernel(rng, dev)
+    # a generator of its own: phases 4-5 draw their data from rng alone
+    a_err, a_ms, a_plain_ms = phase_align(
+        np.random.default_rng(args.seed + 1), dev)
 
     with tempfile.TemporaryDirectory(prefix="kslam_smoke_") as tmp:
         log("phase 4 CLI cuda vs cpu on a small DB")
         phase_e2e_small(rng, tmp)
         log(f"phase 5 real size: {args.mbp} Mbp DB, {args.pairs} pairs")
-        launches = phase_real(rng, tmp, args.mbp, args.pairs)
+        launches, ctx = phase_real(rng, tmp, args.mbp, args.pairs)
+        log(f"phase 6 real-size SAM: {args.pairs} pairs")
+        sam_launches = phase_sam(ctx, tmp)
+        log(f"phase 7 host-object path (--device-pipeline off): "
+            f"{args.host_pairs} pairs")
+        if args.host_pairs < args.pairs:
+            log(f"  depth cut: {args.host_pairs} of the {args.pairs} pairs "
+                f"(the host-object pairing is Python)")
+        flat_launches, align_launches = phase_host_path(
+            ctx, tmp, min(args.host_pairs, args.pairs))
 
     kernels = {"kernels": [{
         "name": "sw_forward", "route": "cuda",
         "source": "kslam_tpu_torch/csrc/sw_forward.cu",
         "replaces": "kslam_tpu/ops/sw_pallas.py:163",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}
+        "launches": launches,
+        "launches_by_path": {"device_pipeline": launches,
+                             "sam": sam_launches,
+                             "flat_window": flat_launches},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, {
+        "name": "sw_align_batch", "route": "cuda",
+        "source": "kslam_tpu_torch/ops/sw_cuda.py",
+        "replaces": "kslam_tpu/ops/sw_pallas.py:188",
+        "launches": align_launches,
+        "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain_ms}]}
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,17 @@
 
 Usage:
   python -m kslam_tpu_torch.cli [options] --db=DATABASE --output-file OUT \
-      R1FILE [R2FILE] [--device cuda|cpu]
+      [--sam-file OUT.sam] R1FILE [R2FILE] [--device cuda|cpu]
+  python -m kslam_tpu_torch.cli --build-host-table HOST.fa --output-file D
   python -m kslam_tpu_torch.cli --parse-fasta F.fa [...] --output-file DBDIR
   python -m kslam_tpu_torch.cli --parse-genbank F.gbff [...] --output-file D
   python -m kslam_tpu_torch.cli --parse-taxonomy names.dmp nodes.dmp \
       --output-file DB
 
-The flags and database files are kslam_tpu.cli's.  This port runs the
-columnar classification (XML, _PerRead and _abbreviated outputs) on one
-device; flags of paths not ported yet raise instead of being ignored.
+The flags and database files are kslam_tpu.cli's, and so are the outputs
+(SAM, XML, _PerRead, _abbreviated), on one device.  The multi-device
+flags (--mesh, --shard-genomes, --coordinator) are not ported yet and
+raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -54,14 +56,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-pseudo-assembly", action="store_true",
                    help="do not link alignments together")
     p.add_argument("--host-screen", default="",
-                   help="directory with a host k-mer table")
+                   help="directory with a host k-mer table; reads matching "
+                        "the host genome are removed before alignment")
     p.add_argument("--low-complexity-cutoff", type=int, default=0,
                    help="flag reads with fewer than N distinct 3-mers")
     p.add_argument("--device-pipeline", choices=("auto", "on", "off"),
                    default="auto",
-                   help="the port always runs the device pipeline")
+                   help="full-device batch path (auto: on); off runs the "
+                        "host-object path")
     p.add_argument("--resume", action="store_true",
-                   help="resume an interrupted run")
+                   help="resume an interrupted run from its chunk "
+                        "checkpoint (cursor sidecar next to the output)")
     p.add_argument("--no-chunk-overlap", action="store_true",
                    help="chunks always run one after another here")
     p.add_argument("--no-prefix-rows", action="store_true",
@@ -87,19 +92,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # flags of paths the port does not run yet: (argument name, flag)
-_NOT_PORTED = (
-    ("sam_file", "--sam-file"), ("just_align", "--just-align"),
-    ("host_screen", "--host-screen"),
-    ("low_complexity_cutoff", "--low-complexity-cutoff"),
-    ("resume", "--resume"), ("mesh", "--mesh"),
-    ("shard_genomes", "--shard-genomes"), ("coordinator", "--coordinator"),
-    ("build_host_table", "--build-host-table"))
+_NOT_PORTED = (("mesh", "--mesh"), ("shard_genomes", "--shard-genomes"),
+               ("coordinator", "--coordinator"))
 
 
 def _refuse_unported(args) -> None:
     used = [flag for name, flag in _NOT_PORTED if getattr(args, name)]
-    if args.device_pipeline == "off":
-        used.append("--device-pipeline off")
     if used:
         raise NotImplementedError(
             f"not yet ported to kslam_tpu_torch: {', '.join(used)} "
@@ -115,9 +113,14 @@ def config_from_args(args, argv) -> PipelineConfig:
         num_sam_alignments=args.num_alignments,
         perform_pseudo_assembly=not args.no_pseudo_assembly,
         sam_xa=args.sam_xa,
+        just_align=args.just_align,
         num_reads_at_once=args.num_reads_at_once,
         num_reads=args.num_reads,
         command_line=" ".join(["SLAM"] + argv),
+        host_screen_dir=args.host_screen,
+        low_complexity_cutoff=args.low_complexity_cutoff,
+        resume=args.resume,
+        device_pipeline=args.device_pipeline,
     )
 
 
@@ -170,6 +173,13 @@ def main(argv=None) -> int:
         log("Parsing FASTA")
         build_database(args.input_files, args.output_file, from_fasta=True)
         return 0
+    if args.build_host_table:
+        log("Building host lookup table (k = 16)")
+        from .db.genbank import index_from_fasta
+        from .db.host_table import HostTable
+        gindex = index_from_fasta(args.input_files)
+        HostTable.build(gindex).save(args.output_file)
+        return 0
     if args.parse_taxonomy:
         log("Parsing taxonomy")
         if len(args.input_files) != 2:
@@ -188,7 +198,8 @@ def main(argv=None) -> int:
     r1 = args.input_files[0]
     r2 = args.input_files[1] if len(args.input_files) > 1 else None
     from .pipeline.run import metagenomic_analysis
-    metagenomic_analysis(r1, r2, args.db, args.output_file, config, device)
+    metagenomic_analysis(r1, r2, args.db, args.output_file, args.sam_file,
+                         config, device)
     return 0
 
 

@@ -1,26 +1,35 @@
-"""ctypes bindings to the native host runtime (csrc/libkslam_host.so).
+"""ctypes bindings to the native host runtime (libkslam_host.so).
 
-Loads lazily and degrades gracefully: when the shared library is absent
-(not built yet, or a platform without the toolchain) every accessor
-returns None and callers fall back to the pure-Python implementations.
-Build with `make -C csrc`; an auto-build is attempted once per process if
-a compiler is available.
+Loads lazily and degrades gracefully: when the shared library cannot be
+built or loaded, every accessor returns None and callers fall back to the
+pure-Python implementations; BUILD_REPORT says which compiler built it,
+or why nothing did.
+
+The library is built once per process from the unchanged sources in the
+repository's csrc/ (its Makefile, -fopenmp included) into
+kslam_tpu_torch/csrc/build/host/, with the first of $CXX, g++ and c++
+that builds it.  A file lock serialises concurrent builds (several test
+workers or processes importing the package at once).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
 import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "csrc")
-_LIB_PATH = os.path.join(_CSRC, "build", "libkslam_host.so")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "build", "host")
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+BUILD_REPORT = ""     # compiler that built the library, or why none did
 
 
 def _configure(lib) -> None:
@@ -59,25 +68,70 @@ def _configure(lib) -> None:
             u32p, i32p, i32]           # cigar_buf, cigar_len, max_ops
 
 
+def host_compilers() -> list:
+    """Compilers to try, in order: $CXX, then g++ and c++ on PATH."""
+    out = []
+    for cxx in (os.environ.get("CXX", ""), "g++", "c++"):
+        if cxx and cxx not in out:
+            out.append(cxx)
+    return out
+
+
+def build_host_library(build_dir: str, compilers) -> tuple:
+    """`make -C csrc BUILD=build_dir CXX=<compiler>` with each compiler in
+    turn until one builds the library (make's up-to-date check makes a
+    rebuild of current sources a no-op).  The Makefile's CXXFLAGS, with
+    -fopenmp, always apply: CXXFLAGS from the environment is not passed
+    on.  Returns (library path or None, report)."""
+    os.makedirs(build_dir, exist_ok=True)
+    lib_path = os.path.join(build_dir, "libkslam_host.so")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CXXFLAGS", "MAKEFLAGS", "MFLAGS")}
+    failures = []
+    with open(os.path.join(build_dir, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for cxx in compilers:
+            before = (os.path.getmtime(lib_path)
+                      if os.path.exists(lib_path) else None)
+            try:
+                res = subprocess.run(
+                    ["make", "-C", _CSRC, f"BUILD={build_dir}", f"CXX={cxx}"],
+                    capture_output=True, text=True, timeout=300, env=env)
+            except (OSError, subprocess.SubprocessError) as exc:
+                failures.append(f"{cxx}: {exc}")
+                continue
+            if res.returncode == 0 and os.path.exists(lib_path):
+                if os.path.getmtime(lib_path) != before:
+                    with open(lib_path + ".cxx", "w") as fh:
+                        fh.write(f"{cxx} ({shutil.which(cxx) or cxx})")
+                try:
+                    with open(lib_path + ".cxx") as fh:
+                        return lib_path, f"built with {fh.read()}"
+                except OSError:
+                    return lib_path, "built earlier (compiler not recorded)"
+            lines = [line for line in res.stderr.splitlines()
+                     if line.strip() and "***" not in line]
+            failures.append(f"{cxx}: " + (" | ".join(lines[-2:]) or
+                                          f"make exited {res.returncode}"))
+    return None, "no compiler built it: " + "; ".join(failures)
+
+
 def get_lib():
-    """The loaded native library, or None when unavailable."""
-    global _lib, _tried
+    """The loaded native library, or None when unavailable (the reason is
+    in BUILD_REPORT)."""
+    global _lib, _tried, BUILD_REPORT
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        # make is a fast no-op when the library is current; running it
-        # unconditionally also picks up source changes in csrc/
+        path, BUILD_REPORT = build_host_library(_BUILD_DIR, host_compilers())
+        if path is None:
+            return None
         try:
-            subprocess.run(["make", "-C", _CSRC], capture_output=True,
-                           timeout=120, check=True)
-        except (OSError, subprocess.SubprocessError):
-            if not os.path.exists(_LIB_PATH):
-                return None
-        try:
-            _lib = ctypes.CDLL(_LIB_PATH)
+            _lib = ctypes.CDLL(path)
             _configure(_lib)
-        except OSError:
+        except OSError as exc:
+            BUILD_REPORT += f"; loading it failed: {exc}"
             _lib = None
         return _lib
 

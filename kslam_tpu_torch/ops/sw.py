@@ -1,5 +1,6 @@
 """Batched Smith-Waterman around the device kernel: result types, the
-candidate window builder and the begin-position reverse pass.
+candidate window builders (chunked for the device pipeline, flat for the
+host-object path) and the begin-position reverse pass.
 
 Counterpart of kslam_tpu/ops/sw.py.  The forward pass itself (score and
 end positions, the reference's tie-break contract: max score, then the
@@ -70,6 +71,56 @@ def genome_chunks_from_scodes(scodes: np.ndarray) -> np.ndarray:
     padded = np.full(((g + CHUNK - 1) // CHUNK) * CHUNK, 4, np.uint8)
     padded[:g] = scodes
     return padded.reshape(-1, CHUNK)
+
+
+def align_overlaps_batch(read_id, entry_id, rel_pos, rc, valid,
+                         read_scodes, read_lengths, genome_scodes,
+                         entry_offsets, match: int, mismatch: int,
+                         gap_open: int, gap_extend: int,
+                         window_len: int) -> SWAlignments:
+    """performSmithWatermanOnRange2 (SmithWaterman.h:184-233), batched
+    over the flat [G] genome codes: slice the ref window at max(rel, 0)
+    of query length (clipped at the entry end), reverse-complement it for
+    RC overlaps, align (sw_cuda.sw_align_batch: the kernel's forward and
+    reverse passes), flip RC coordinates back to forward-ref space, then
+    add the window start.  window_len is the padded length (>= the
+    longest read).  Rows of invalid candidates produce arbitrary
+    results; callers filter."""
+    from . import sw_cuda
+    dev = read_scodes.device
+    safe_read = torch.clamp(read_id.to(torch.int64), 0,
+                            read_scodes.shape[0] - 1)
+    safe_entry = torch.clamp(entry_id.to(torch.int64), 0,
+                             entry_offsets.shape[0] - 2)
+    qlen = read_lengths[safe_read].to(torch.int32)
+    ref_start = torch.clamp(rel_pos.to(torch.int32), min=0)
+    e_off = entry_offsets[safe_entry].to(torch.int64)
+    e_len = (entry_offsets[safe_entry + 1].to(torch.int64) - e_off) \
+        .to(torch.int32)
+    wlen = torch.minimum(torch.clamp(e_len - ref_start, min=0), qlen)
+
+    j = torch.arange(window_len, dtype=torch.int32, device=dev)[None, :]
+    # forward window positions; RC rows read the window reversed
+    pos = torch.where(rc[:, None], wlen[:, None] - 1 - j, j)
+    in_window = (pos >= 0) & (pos < wlen[:, None])
+    g_idx = torch.clamp(e_off[:, None] + ref_start[:, None].to(torch.int64)
+                        + pos, 0, genome_scodes.shape[0] - 1)
+    window = genome_scodes[g_idx].to(torch.int32)
+    window = torch.where(rc[:, None] & (window < 4), window ^ 2, window)
+    window = torch.where(in_window, window, torch.full_like(window, 4))
+
+    q = read_scodes[safe_read].to(torch.int32)
+    q = torch.where(j < qlen[:, None], q, torch.full_like(q, 4))
+    al = sw_cuda.sw_align_batch(q, window, match, mismatch, gap_open,
+                                gap_extend)
+
+    # RC coordinate flip (SmithWaterman.h:212-227), applied to every RC
+    # row like the reference (score-0 rows included)
+    rb = torch.where(rc, wlen - 1 - al.ref_end, al.ref_begin)
+    re = torch.where(rc, wlen - 1 - al.ref_begin, al.ref_end)
+    qb = torch.where(rc, qlen - 1 - al.query_end, al.query_begin)
+    qe = torch.where(rc, qlen - 1 - al.query_begin, al.query_end)
+    return SWAlignments(al.score, rb + ref_start, re + ref_start, qb, qe)
 
 
 def align_overlaps_batch_chunked(read_id, entry_id, rel_pos, rc, valid,

@@ -23,7 +23,9 @@ Hopper's DPX max instructions and a warp-per-alignment layout are later
 work.
 
 The wrapper sends a CPU tensor to the plain twin and a CUDA tensor to the
-kernel; a CUDA tensor never falls back.  LAUNCHES counts kernel launches.
+kernel; a CUDA tensor never falls back.  LAUNCHES counts kernel launches;
+ALIGN_LAUNCHES those made through the sw_align_batch composition (the
+flat-window path of --device-pipeline off).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from .sw import SWAlignments, SWEnds, _reverse_gather
 
 NEG = -(2 ** 30)
 LAUNCHES = 0          # kernel launches made by sw_forward_batch
+ALIGN_LAUNCHES = 0    # of those, the ones made through sw_align_batch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -214,17 +217,37 @@ def sw_forward_batch(q, r, match: int, mismatch: int, gap_open: int,
     return _launch(q, r, match, mismatch, gap_open, gap_extend, n_valid)
 
 
-def sw_align_batch(q, r, match: int, mismatch: int, gap_open: int,
-                   gap_extend: int) -> SWAlignments:
-    """Forward + reverse pass (begin positions) over the forward kernel;
-    counterpart of sw_pallas.sw_align_batch."""
-    fwd = sw_forward_batch(q, r, match, mismatch, gap_open, gap_extend)
+def _align_composition(forward, q, r, match: int, mismatch: int,
+                       gap_open: int, gap_extend: int) -> SWAlignments:
+    """Forward pass, reverse gather of the aligned prefixes, forward pass
+    again: scores, end and begin positions (sw_pallas.sw_align_batch)."""
+    fwd = forward(q, r, match, mismatch, gap_open, gap_extend)
     q_rev = _reverse_gather(q, fwd.read_end)
     r_rev = _reverse_gather(r, fwd.ref_end)
-    rev = sw_forward_batch(q_rev, r_rev, match, mismatch, gap_open,
-                           gap_extend)
+    rev = forward(q_rev, r_rev, match, mismatch, gap_open, gap_extend)
     zero = fwd.score == 0
     ref_begin = torch.where(zero, -1, fwd.ref_end - rev.ref_end)
     query_begin = torch.where(zero, 0, fwd.read_end - rev.read_end)
     return SWAlignments(fwd.score, ref_begin.to(torch.int32), fwd.ref_end,
                         query_begin.to(torch.int32), fwd.read_end)
+
+
+def sw_align_batch(q, r, match: int, mismatch: int, gap_open: int,
+                   gap_extend: int) -> SWAlignments:
+    """Forward + reverse pass (begin positions) over sw_forward_batch:
+    the kernel for CUDA tensors, the plain twin for CPU ones; counterpart
+    of sw_pallas.sw_align_batch.  ALIGN_LAUNCHES counts the kernel
+    launches made here."""
+    global ALIGN_LAUNCHES
+    before = LAUNCHES
+    out = _align_composition(sw_forward_batch, q, r, match, mismatch,
+                             gap_open, gap_extend)
+    ALIGN_LAUNCHES += LAUNCHES - before
+    return out
+
+
+def sw_align_batch_plain(q, r, match: int, mismatch: int, gap_open: int,
+                         gap_extend: int) -> SWAlignments:
+    """The same composition over the plain twin, on any device."""
+    return _align_composition(sw_forward_batch_plain, q, r, match, mismatch,
+                              gap_open, gap_extend)

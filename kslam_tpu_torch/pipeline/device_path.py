@@ -11,6 +11,8 @@ sizes, PairedOverlap.h:300-360):
   phase B: per batch insert screen (replace) + score screen -> chunk-wide
            concat -> pseudo-assembly chain labels -> exact host double
            rescoring of multi-member chains -> rescreen -> per-read LCA.
+  objects: chunk_to_host_pairs builds the host object model of the
+           surviving pairs (SAM output and --just-align).
 
 Shapes are dynamic: every stage is sized to the rows that exist (a few
 host reads of counts per batch), so nothing is ever dropped to a static
@@ -305,3 +307,69 @@ def run_chunk_phase_b(a_list, mid_local: int, chunk_mid: int, unit: int,
     b = phase_b_finish(cols, entry_taxids, lca_tables, fraction=fraction,
                        rescreen=perform_pseudo_assembly)
     return b, ov_cols
+
+
+def fetch_host_pairs_arrays(b: PhaseBOut, ov_cols):
+    """Host copies for chunk_to_host_pairs (SAM/object path) in one int64
+    transfer: the overlap columns, and the surviving rows of the pair
+    columns (phase_b_finish puts the valid rows first).  Returns (overlap
+    columns, (valid, group, r1_idx, r2_idx, score, entry_id, ref_start,
+    ref_end, insert_size, read_lca, group_last))."""
+    n = int(b.cols.valid.sum())
+    cols = (b.cols.valid, b.cols.group, b.cols.r1_idx, b.cols.r2_idx,
+            b.cols.combined_score, b.cols.entry_id, b.cols.ref_start,
+            b.cols.ref_end, b.cols.insert_size, b.read_lca, b.group_last)
+    flat = torch.cat([c.to(torch.int64) for c in ov_cols] +
+                     [c[:n].to(torch.int64) for c in cols]).cpu().numpy()
+    n_ov = ov_cols[0].shape[0] * len(ov_cols)
+    return (tuple(flat[:n_ov].reshape(len(ov_cols), -1)),
+            tuple(flat[n_ov:].reshape(len(cols), n)))
+
+
+def chunk_to_host_pairs(b: PhaseBOut, ov_cols, chunk_mid: int,
+                        fetched=None):
+    """The host object model (ReadPairAlignments per read, with their
+    PairedOverlaps and AlignedOverlaps) of run_chunk_phase_b's result, for
+    SAM emission and gene assignment; returns (reads, {r1 position: read
+    LCA}).  Overlap read ids and groups are already chunk-global
+    (globalize_batch), so no offsets are added here."""
+    from .pairing import (AlignedOverlap, PairedOverlap,
+                          ReadPairAlignments)
+    if fetched is None:
+        fetched = fetch_host_pairs_arrays(b, ov_cols)
+    (ov_read, ov_entry, ov_rel, ov_rc, ov_score, ov_begin, ov_end,
+     ov_qb, ov_qe) = fetched[0]
+    overlap_cache = {}
+
+    def overlap_of(j):
+        if j < 0:
+            return None
+        o = overlap_cache.get(j)
+        if o is None:
+            o = AlignedOverlap(
+                read_id=int(ov_read[j]), entry_id=int(ov_entry[j]),
+                rel_pos=int(ov_rel[j]), rc=bool(ov_rc[j]),
+                score=int(ov_score[j]), ref_begin=int(ov_begin[j]),
+                ref_end=int(ov_end[j]), query_begin=int(ov_qb[j]),
+                query_end=int(ov_qe[j]))
+            overlap_cache[j] = o
+        return o
+
+    (valid, group, r1i, r2i, sc, en, rs, re, ins, lca, last) = fetched[1]
+    reads = []
+    lcas = {}
+    current = None
+    for i in np.nonzero(valid)[0]:
+        g = int(group[i])
+        if current is None or current.r1_pos != g:
+            current = ReadPairAlignments(
+                g, g + chunk_mid if chunk_mid else g, [])
+            reads.append(current)
+        current.pairs.append(PairedOverlap(
+            combined_score=int(sc[i]) & 0xFFFFFFFF, entry_id=int(en[i]),
+            ref_start=int(rs[i]), ref_end=int(re[i]),
+            insert_size=int(ins[i]), r1=overlap_of(int(r1i[i])),
+            r2=overlap_of(int(r2i[i]))))
+        if last[i]:
+            lcas[g] = int(lca[i])
+    return reads, lcas

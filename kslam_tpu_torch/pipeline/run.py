@@ -1,17 +1,32 @@
-"""End-to-end classification run: metagenomicAnalysis_Low_Mem rebuilt
-on torch (SLAM.h:159-268).
+"""End-to-end run: metagenomicAnalysis_Low_Mem rebuilt on torch
+(SLAM.h:159-268).
 
-Counterpart of the device branch of kslam_tpu/pipeline/run.py, with a
-sequential chunk loop: each chunk is split into device batches of
-config.read_batch reads, each batch runs phase A, one chunk-wide insert
-model runs on the host, then the chunk-wide phase B and the per-read
-classification.  Results are written as the per-read TSV, the combined
-XML and the abbreviated TSV.
+Counterpart of kslam_tpu/pipeline/run.py, with a sequential chunk loop.
+Each chunk may first lose its host reads (--host-screen) and have its
+low-complexity reads counted (--low-complexity-cutoff), then runs one of
+two paths on the run's device:
+
+  * the device pipeline (--device-pipeline on, and auto): device batches
+    of config.read_batch reads through phase A, one chunk-wide insert
+    model on the host, the chunk-wide phase B; the per-read taxonomy
+    comes straight off the device columns, or, with SAM output or
+    --just-align, through the host object model
+    (device_path.chunk_to_host_pairs);
+  * the host-object path (--device-pipeline off): align_batch_to_database
+    (exact join, flat-window SW on the device), then host pairing,
+    screens and pseudo-assembly over Python objects (pipeline/pairing.py).
+
+SAM lines are written per chunk; the per-read TSV, the combined XML and
+the abbreviated TSV at the end (not with --just-align).  --resume
+continues an interrupted run from its chunk checkpoint
+(pipeline/checkpoint.py).
 """
 
 from __future__ import annotations
 
+import os
 import sys
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -20,20 +35,46 @@ from ..config import PipelineConfig
 from ..db.genbank import GenbankIndex
 from ..db.kmer_index import KmerIndex
 from ..db.taxonomy import TaxonomyDB
+from ..io import sam as sam_io
 from ..io import xml_results
 from ..io.fastq import ReadBatch, stream_read_batches
-from ..ops import encode, lca as lca_ops
+from ..ops import encode, lca as lca_ops, screen as screen_ops
 from ..ops.sw import check_params
 from ..utils import metrics
 from ..utils.logging import log
 from . import align, classify, device_path, pairing
+from .checkpoint import RunCheckpoint
+
+
+def apply_host_screen(batch: ReadBatch, table, kind: str) -> ReadBatch:
+    """Remove host-organism reads (labelHostReads semantics,
+    KMerLookupTable.h:257-270).  table: the host table's tensor
+    (ops/screen.table_tensor) on the run's device.  For paired data the
+    whole pair is dropped when either mate is host, as in the reference
+    package."""
+    is_host = screen_ops.label_host_reads(batch, table, lookup_kind=kind)
+    if batch.paired:
+        mid = batch.midpoint
+        pair_host = is_host[:mid] | is_host[mid:]
+        keep = np.concatenate([~pair_host, ~pair_host])
+    else:
+        keep = ~is_host
+    n_drop = int((~keep).sum())
+    if n_drop:
+        log(f"Screened {n_drop} host reads, now got {int(keep.sum())}")
+    idx = np.flatnonzero(keep)
+    return ReadBatch(
+        names=[batch.names[i] for i in idx], bases=batch.bases[idx],
+        lengths=batch.lengths[idx], quality=batch.quality[idx],
+        paired=batch.paired)
 
 
 def process_chunk(batch: ReadBatch, db: align.DeviceDB,
                   config: PipelineConfig, entry_taxids,
-                  lca_tables) -> device_path.PhaseBOut:
+                  lca_tables):
     """One chunk through phase A (per device batch), the chunk-wide
-    insert model and phase B; returns the chunk's PhaseBOut."""
+    insert model and phase B; returns the chunk's (PhaseBOut, overlap
+    columns) of device_path.run_chunk_phase_b."""
     dev = db.kmers.device
     paired = batch.paired
     # pad reads to the chunk's real maximum (rounded to 8), as the
@@ -94,50 +135,200 @@ def process_chunk(batch: ReadBatch, db: align.DeviceDB,
                 sorted(int(x) for x in allins))
         log(f"max allowed insert size {max_insert}")
     with metrics.stage("phase_b"):
-        b, _ = device_path.run_chunk_phase_b(
+        return device_path.run_chunk_phase_b(
             a_list, mid_local, chunk_mid, unit,
             min(max_insert, 2**32 - 1), entry_taxids, lca_tables,
             fraction=config.score_fraction_threshold,
             perform_pseudo_assembly=config.perform_pseudo_assembly,
             paired=paired)
-    return b
 
 
-def metagenomic_analysis(r1_path: str, r2_path, database_dir: str,
-                         out_path: str, config: PipelineConfig,
-                         device) -> None:
-    """metagenomicAnalysis_Low_Mem (SLAM.h:159-268), classification
-    outputs only (no SAM), on `device`."""
+def process_batch(batch: ReadBatch, db: align.DeviceDB,
+                  config: PipelineConfig) -> List[pairing.ReadPairAlignments]:
+    """One chunk through alignment, pairing and screens (SLAM.h:209-234)."""
+    with metrics.stage("align", items=batch.num_reads):
+        overlaps = align.align_batch_to_database(batch, db, config)
+    log(f"{len(overlaps)} overlaps survive the score screen")
+    metrics.count("overlaps_screened", len(overlaps))
+    read_lengths = batch.lengths
+    with metrics.stage("pairing"):
+        if batch.paired:
+            mid = batch.midpoint
+            pairs = pairing.get_paired_overlaps(overlaps, read_lengths, mid)
+            reads_and_pairs = pairing.group_pairs_per_read(pairs, mid)
+            max_insert = pairing.max_allowed_insert_size(reads_and_pairs)
+            log(f"max allowed insert size {max_insert}")
+            pairing.screen_pairs_by_insert_size(reads_and_pairs, max_insert,
+                                                replace=True)
+            pairing.screen_pairs_by_score(reads_and_pairs,
+                                          config.score_fraction_threshold)
+        else:
+            reads_and_pairs = pairing.dummy_pairs_from_single_end(overlaps)
+            pairing.screen_pairs_by_score(reads_and_pairs,
+                                          config.score_fraction_threshold)
+    if config.perform_pseudo_assembly:
+        with metrics.stage("pseudo_assembly"):
+            pairing.pseudo_assembly(reads_and_pairs)
+            pairing.screen_pairs_by_score(reads_and_pairs,
+                                          config.score_fraction_threshold)
+    return reads_and_pairs
+
+
+def _fill_cigars(reads_and_pairs, batch: ReadBatch, gindex: GenbankIndex,
+                 config: PipelineConfig) -> None:
+    """Deferred cigar generation for SAM survivors only (top
+    numSAMAlignments per read; identical output to the reference's
+    compute-everything approach)."""
+    todo = []
+    for read in reads_and_pairs:
+        read.pairs.sort(key=lambda p: -p.combined_score)
+        for pair in read.pairs[:config.num_sam_alignments]:
+            for o in (pair.r1, pair.r2):
+                if o is not None and o.cigar is None:
+                    todo.append(o)
+    if not todo:
+        return
+    if align.compute_cigars_batch(todo, batch, gindex, config):
+        return
+    for o in todo:  # pure-Python fallback (native library unavailable)
+        align.compute_overlap_cigar(
+            o, batch.base_string(o.read_id),
+            gindex.entries[o.entry_id].bases, config)
+
+
+def metagenomic_analysis(r1_path: str, r2_path: Optional[str],
+                         database_dir: str, out_path: str, sam_path: str,
+                         config: PipelineConfig, device) -> None:
+    """metagenomicAnalysis_Low_Mem (SLAM.h:159-268) on `device`."""
     check_params(config.sw)
     log("Performing metagenomic analysis")
+    if sam_path:
+        config.report_cigar = True
     config.paired_data = bool(r2_path)
+    # "auto" runs the device pipeline: this port runs it on any device
+    use_device = config.device_pipeline != "off"
     with metrics.stage("db_load"):
-        taxdb = TaxonomyDB.read_index(f"{database_dir}/taxDB")
+        taxdb = TaxonomyDB.read_index(f"{database_dir}/taxDB") \
+            if not config.just_align else TaxonomyDB()
         gindex = GenbankIndex.load(database_dir)
         kidx = KmerIndex.load(database_dir)
-        db = align.DeviceDB.from_index(gindex, kidx, device)
-        entry_taxids = torch.as_tensor(
-            gindex.taxonomy_ids.astype(np.int64)).to(device)
-        lca_tables = lca_ops.build_device_tables(taxdb, device)
-    log(f"Using the {torch.device(device).type} device pipeline")
+        db = align.DeviceDB.from_index(gindex, kidx, device,
+                                       flat_scodes=not use_device)
+        entry_taxids = lca_tables = None
+        if use_device:
+            entry_taxids = torch.as_tensor(
+                gindex.taxonomy_ids.astype(np.int64)).to(device)
+            lca_tables = lca_ops.build_device_tables(taxdb, device)
+    host_table = host_kind = None
+    if config.host_screen_dir:
+        from ..db.host_table import HostTable
+        table = HostTable.load(config.host_screen_dir)
+        host_kind = table.kind
+        host_table = screen_ops.table_tensor(table, device)
+        log("Host screening using k = 16")
 
-    identified = []
+    identified: List[classify.IdentifiedTaxonomy] = []
     num_reads = 0
-    chunks = stream_read_batches(r1_path, r2_path, config.num_reads_at_once,
-                                 config.num_reads,
-                                 pad_len=config.max_read_len)
-    while True:
-        with metrics.stage("fastq_parse"):
-            batch = next(chunks, None)
-        if batch is None:
-            break
-        num_reads += batch.midpoint if batch.paired else batch.num_reads
-        b = process_chunk(batch, db, config, entry_taxids, lca_tables)
-        with metrics.stage("taxonomy"):
-            identified.append(classify.chunk_taxa_from_arrays(
-                classify.fetch_classify_arrays(b), batch.names, gindex))
-        log(f"Processed\t{num_reads}\t reads")
+    chunks_done = 0
+    sam_bytes = 0
+    ck = None
+    if config.resume:
+        ck = RunCheckpoint(out_path or sam_path)
+        state = ck.load()
+        if state is not None:
+            chunks_done, num_reads, sam_bytes, identified = state
+            log(f"Resuming after {chunks_done} chunks / {num_reads} reads")
+    resumed = chunks_done > 0
+    if resumed and sam_path and os.path.exists(sam_path):
+        # drop partial lines written after the last completed chunk
+        os.truncate(sam_path, sam_bytes)
+    log(f"Using the {torch.device(device).type} "
+        + ("device pipeline" if use_device else "host-object pipeline"))
+
+    def handle_chunk(sam_file, batch, reads_and_pairs, arrays,
+                     reads_so_far):
+        """Host tail of one chunk: SAM text, taxonomy, checkpoint.
+        arrays: the columnar classification arrays, or None for the
+        object path (reads_and_pairs)."""
+        nonlocal chunks_done
+        if sam_file:
+            log("Writing SAM output")
+            with metrics.stage("sam_output"):
+                _fill_cigars(reads_and_pairs, batch, gindex, config)
+                for read in reads_and_pairs:
+                    sam_io.write_sam_pairs(sam_file, read, batch, gindex,
+                                           config)
+        chunks_done += 1
+        new_identified = []
+        if not config.just_align:
+            with metrics.stage("taxonomy"):
+                if arrays is not None:
+                    new_identified = classify.chunk_taxa_from_arrays(
+                        arrays, batch.names, gindex)
+                    identified.append(new_identified)
+                else:
+                    new_identified = \
+                        classify.convert_alignments_to_taxonomies(
+                            reads_and_pairs, gindex, batch.names, taxdb)
+                    identified.extend(new_identified)
+        if ck is not None:
+            if sam_file:
+                sam_file.flush()
+            ck.save_chunk(chunks_done, reads_so_far, new_identified,
+                          sam_file.tell() if sam_file else 0)
+        if not config.just_align:
+            log(f"Processed\t{reads_so_far}\t reads")
+
+    sam_file = open(sam_path, "a" if resumed else "w") if sam_path else None
+    try:
+        if sam_file and not resumed:
+            sam_file.write(sam_io.sam_header(gindex, config.command_line))
+        chunks = stream_read_batches(r1_path, r2_path,
+                                     config.num_reads_at_once,
+                                     config.num_reads,
+                                     pad_len=config.max_read_len,
+                                     skip_reads=num_reads)
+        while True:
+            with metrics.stage("fastq_parse"):
+                batch = next(chunks, None)
+            if batch is None:
+                break
+            if host_table is not None:
+                with metrics.stage("host_screen"):
+                    batch = apply_host_screen(batch, host_table, host_kind)
+            if config.low_complexity_cutoff:
+                lc = screen_ops.label_low_complexity_reads(
+                    batch, config.low_complexity_cutoff, device)
+                log(f"Low complexity screening flagged {int(lc.sum())} "
+                    f"reads")
+            num_reads += batch.midpoint if batch.paired else batch.num_reads
+            if not use_device:
+                handle_chunk(sam_file, batch,
+                             process_batch(batch, db, config), None,
+                             num_reads)
+                continue
+            b, ov_cols = process_chunk(batch, db, config, entry_taxids,
+                                       lca_tables)
+            if sam_file or config.just_align:
+                with metrics.stage("to_host_pairs"):
+                    reads, lcas = device_path.chunk_to_host_pairs(
+                        b, ov_cols, batch.midpoint if batch.paired else 0)
+                    for read in reads:
+                        read.device_lca = lcas.get(read.r1_pos, 0)
+                handle_chunk(sam_file, batch, reads, None, num_reads)
+            else:
+                with metrics.stage("taxonomy"):
+                    arrays = classify.fetch_classify_arrays(b)
+                handle_chunk(sam_file, batch, None, arrays, num_reads)
+    finally:
+        if sam_file:
+            sam_file.close()
+    if ck is not None:
+        ck.clear()
     metrics.log_summary()
+    if config.just_align:
+        log("Done")
+        return
     with metrics.stage("write_results"):
         with open(out_path + "_PerRead", "w") as per_read:
             xml_results.write_per_read_results(identified, per_read)

@@ -1,6 +1,7 @@
 """Tests of kslam_tpu_torch that need a CUDA device: the hand-written SW
-kernel against its plain torch twin, and the CUDA classification run
-against the CPU one.  They import neither jax nor kslam_tpu, so they run
+kernel against its plain torch twin (alone and in the sw_align_batch
+composition), the host screen on CUDA against the CPU, and the CUDA CLI
+runs (classification and SAM) against the CPU ones.  They import neither jax nor kslam_tpu, so they run
 on the card's machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -15,9 +16,10 @@ import torch
 
 from kslam_tpu_torch import cli
 from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
+from kslam_tpu_torch.db.host_table import HostTable
 from kslam_tpu_torch.db.kmer_index import KmerIndex
 from kslam_tpu_torch.db.taxonomy import TaxonomyDB
-from kslam_tpu_torch.ops import sw, sw_cuda
+from kslam_tpu_torch.ops import screen, sw, sw_cuda
 
 torch.set_num_threads(1)
 
@@ -103,6 +105,58 @@ def test_chunked_alignment_matches_cpu(cuda_device):
         assert torch.equal(a.cpu(), b_)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", PARAMS)
+def test_align_composition_matches_plain(cuda_device, params):
+    """sw_align_batch (two kernel passes) against the same composition
+    over the plain twin at the flat window's shapes, Lq = Lr = 160."""
+    rng = np.random.default_rng(8)
+    b = 4096
+    q, r = _similar(rng, b, 160, 160, mut=0.05)
+    q[::11] = 4                                      # all-N rows
+    qd, rd = (torch.as_tensor(x, device=cuda_device) for x in (q, r))
+    before = sw_cuda.LAUNCHES
+    got = sw_cuda.sw_align_batch(qd, rd, *params)
+    assert sw_cuda.LAUNCHES == before + 2
+    ref = sw_cuda.sw_align_batch_plain(qd, rd, *params)
+    for a, b_ in zip(got, ref):
+        assert torch.equal(a, b_)
+    assert (got.ref_begin[::11] == -1).all()
+
+
+@pytest.mark.cuda
+def test_screen_cuda_matches_cpu(cuda_device):
+    """screen_reads on CUDA tensors against CPU tensors, with the sorted
+    table and with the full 2^27-word bitset built from the same host."""
+    rng = np.random.default_rng(2)
+    host = B4[rng.integers(0, 4, 20_000)].tobytes().decode()
+    gindex = GenbankIndex([GenbankEntry(bases=host)])
+    bases = np.zeros((3000, 160), np.uint8)
+    lengths = rng.integers(10, 161, 3000).astype(np.int32)
+    for i in range(3000):
+        if i % 2:
+            p = int(rng.integers(0, len(host) - 160))
+            seq = np.frombuffer(host[p:p + 160].encode(), np.uint8).copy()
+            mut = rng.random(160) < (i % 7) * 0.01
+            seq[mut] = B4[rng.integers(0, 4, int(mut.sum()))]
+        else:
+            seq = B4[rng.integers(0, 4, 160)]
+        bases[i, :lengths[i]] = seq[:lengths[i]]
+    bases[::13, :80] = ord("A")                       # low complexity
+    outs = []
+    for kind in ("sorted", "bitset"):
+        table = HostTable.build(gindex, kind=kind)
+        for dev in ("cpu", cuda_device):
+            outs.append(screen.screen_reads(
+                torch.as_tensor(bases, device=dev),
+                torch.as_tensor(lengths, device=dev),
+                screen.table_tensor(table, dev), lookup_kind=kind))
+    for out in outs[1:]:
+        for a, b_ in zip(out, outs[0]):
+            assert torch.equal(a.cpu(), b_)
+    assert 200 < int(outs[0][0].sum()) < 1500
+
+
 def _small_db(root, rng):
     genomes = [B4[rng.integers(0, 4, 5000)] for _ in range(3)]
     gindex = GenbankIndex([GenbankEntry(bases=g.tobytes().decode(),
@@ -139,3 +193,25 @@ def test_cli_cuda_matches_cpu(cuda_device, tmp_path):
                         for s in ("", "_PerRead", "_abbreviated")]
     assert outs["cuda"] == outs["cpu"]
     assert os.path.getsize(str(tmp_path / "out_cuda_PerRead")) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [[], ["--device-pipeline", "off"]],
+                         ids=["device_pipeline", "host_path"])
+def test_sam_cli_cuda_matches_cpu(cuda_device, tmp_path, flags):
+    _small_db(tmp_path, np.random.default_rng(5))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        before = sw_cuda.LAUNCHES
+        out = tmp_path / f"out_{device}"
+        assert cli.main(["--db", str(tmp_path), "--output-file", str(out),
+                         "--sam-file", str(out) + ".sam", "--device", device]
+                        + flags + [str(tmp_path / "r1.fq"),
+                                   str(tmp_path / "r2.fq")]) == 0
+        assert (sw_cuda.LAUNCHES > before) == (device == "cuda")
+        outs[device] = [open(str(out) + s).read()
+                        for s in ("", "_PerRead", "_abbreviated")]
+        outs[device].append([line for line in open(str(out) + ".sam")
+                             if not line.startswith("@PG")])
+    assert outs["cuda"] == outs["cpu"]
+    assert len(outs["cuda"][3]) > 400

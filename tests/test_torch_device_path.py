@@ -198,7 +198,7 @@ def test_chunk_split_over_batches_matches_jax(setup, paired):
     jb = jrun.process_batch_device(
         b, jdb, small, jnp.asarray(gindex.taxonomy_ids.astype(np.int32)),
         jlca.build_device_tables(taxdb), want_objects=False)
-    tb = run.process_chunk(
+    tb, _ = run.process_chunk(
         b, tdb, small, torch.as_tensor(gindex.taxonomy_ids.astype(np.int64)),
         lca.build_device_tables(taxdb, "cpu"))
     t_rows, j_rows = _valid_rows(tb, True), _valid_rows(jb, False)

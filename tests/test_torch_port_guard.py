@@ -1,6 +1,7 @@
 """Guards of the kslam_tpu_torch port: it imports where JAX is absent,
 its copies of the reference package's host modules have not drifted,
-and its CLI refuses (never ignores) flags of paths not ported yet."""
+its CLI refuses (never ignores) flags of paths not ported yet, and its
+native-library loader says why it did not build."""
 
 import ast
 import os
@@ -62,7 +63,17 @@ COPIES = [
       "KmerIndex._fingerprint", "KmerIndex.device_arrays",
       "KmerIndex.shard_bounds", "KmerIndex.shard"), None),
     ("io/fastq", "io/fastq", (), (), None),
-    ("io/native", "io/native", (), (), None),
+    ("io/native", "io/native",
+     ("get_lib", "_BUILD_DIR", "BUILD_REPORT", "host_compilers",
+      "build_host_library"), ("_LIB_PATH",), None),
+    ("io/sam", "io/sam", (), (), None),
+    ("golden/ssw", "golden/ssw", (), (), None),
+    ("db/host_table", "db/host_table", (), (), None),
+    ("pipeline/checkpoint", "pipeline/checkpoint", (), (), None),
+    ("pipeline/align", "pipeline/align", (), (),
+     ("_next_pow2", "compute_cigars_batch", "compute_overlap_cigar")),
+    ("pipeline/run", "pipeline/run", (), (),
+     ("process_batch", "_fill_cigars")),
     ("io/xml_results", "io/xml_results", (), (), None),
     ("pipeline/pairing", "pipeline/pairing", (), (), None),
     ("pipeline/classify", "pipeline/classify", ("fetch_classify_arrays",),
@@ -122,11 +133,7 @@ def test_copied_host_code_has_not_drifted(port, ref, changed, dropped,
         assert mine[name] == theirs[name], f"{port}: {name} drifted"
 
 
-UNPORTED = [["--sam-file", "x.sam"], ["--just-align"],
-            ["--device-pipeline", "off"], ["--host-screen", "H"],
-            ["--low-complexity-cutoff", "3"], ["--resume"],
-            ["--mesh", "2x4"], ["--shard-genomes"],
-            ["--coordinator", "h:1"], ["--build-host-table"]]
+UNPORTED = [["--mesh", "2x4"], ["--shard-genomes"], ["--coordinator", "h:1"]]
 
 
 @pytest.mark.parametrize("flags", UNPORTED, ids=[f[0] for f in UNPORTED])
@@ -142,6 +149,26 @@ def test_cli_cuda_without_card_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--db", str(tmp_path), "--output-file",
                   str(tmp_path / "o"), str(tmp_path / "r1.fq")])
+
+
+def test_native_loader_reports_why_it_did_not_build(tmp_path,
+                                                    monkeypatch):
+    """A compiler that does not exist builds nothing, and the report
+    names it with make's reason; the loader's own build either loaded
+    the library or says why not."""
+    from kslam_tpu_torch.io import native
+    path, report = native.build_host_library(
+        str(tmp_path / "build"), ["/nonexistent/bin/g++"])
+    assert path is None
+    assert "/nonexistent/bin/g++" in report and "No such file" in report
+    assert not os.path.exists(tmp_path / "build" / "libkslam_host.so")
+    lib = native.get_lib()
+    assert native.BUILD_REPORT.startswith(
+        "built with " if lib is not None else "no compiler built it")
+    monkeypatch.setenv("CXX", "/opt/x/g++")
+    assert native.host_compilers() == ["/opt/x/g++", "g++", "c++"]
+    monkeypatch.delenv("CXX")
+    assert native.host_compilers() == ["g++", "c++"]
 
 
 def test_kernel_wrapper_never_falls_back():

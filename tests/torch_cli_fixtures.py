@@ -1,6 +1,9 @@
 """Shared fixtures of the CLI comparisons between kslam_tpu_torch.cli
-(--device cpu) and kslam_tpu.cli (--device-pipeline on): two databases
-and paired FASTQ, made from numpy seeds."""
+(--device cpu) and kslam_tpu.cli (the same --device-pipeline on both
+sides: the reference's "auto" takes the host-object path off a TPU): two
+databases and paired FASTQ, made from numpy seeds."""
+
+import os
 
 import numpy as np
 
@@ -105,21 +108,43 @@ def _reads(root, seqs, rng, n_pairs, read_len, ins_lo, ins_hi):
                      f"{'I' * read_len}\n")
 
 
-def outputs(out):
-    return [open(str(out) + suf).read()
-            for suf in ("", "_PerRead", "_abbreviated")]
+SUFFIXES = ("", "_PerRead", "_abbreviated")
 
 
 def compare(root, db, variant):
-    """Run both CLIs on one variant; returns (torch files, jax files)."""
+    """Run both CLIs on one variant; returns (torch files, jax files) as
+    lists of the XML, _PerRead and _abbreviated texts."""
     flags, single = VARIANTS[variant]
+    t_files, j_files = compare_files(root, db, variant, flags, single,
+                                     sam=False)
+    return [t_files[s] for s in SUFFIXES], [j_files[s] for s in SUFFIXES]
+
+
+def run_files(main, root, db, name, flags, single, sam=True):
+    """One CLI run; returns {suffix: text} of the outputs it wrote, with
+    the SAM (key "sam") as its lines without @PG (the command line)."""
     reads = [str(root / "r1.fq")] + ([] if single else [str(root / "r2.fq")])
-    res = []
-    for name, main, extra in (
-            ("torch", tcli.main, ["--device", "cpu"]),
-            ("jax", jcli.main, ["--device-pipeline", "on"])):
-        out = root / f"out_{variant}_{name}"
-        assert main(["--db", str(db), "--output-file", str(out)] + flags +
-                    extra + reads) == 0
-        res.append(outputs(out))
-    return res
+    out = str(root / f"out_{name}")
+    args = ["--db", str(db), "--output-file", out] + flags + reads
+    if sam:
+        args += ["--sam-file", out + ".sam"]
+    assert main(args) == 0
+    files = {}
+    if sam:
+        with open(out + ".sam") as fh:
+            files["sam"] = [line for line in fh if not line.startswith("@PG")]
+    for suf in SUFFIXES:
+        if os.path.exists(out + suf):
+            with open(out + suf) as fh:
+                files[suf] = fh.read()
+    return files
+
+
+def compare_files(root, db, name, flags, single, pipeline="on", sam=True):
+    """Both CLIs with `flags` and --device-pipeline `pipeline`; returns
+    (torch files, jax files) of run_files."""
+    mode = ["--device-pipeline", pipeline]
+    return (run_files(tcli.main, root, db, f"{name}_torch",
+                      flags + mode + ["--device", "cpu"], single, sam),
+            run_files(jcli.main, root, db, f"{name}_jax", flags + mode,
+                      single, sam))
