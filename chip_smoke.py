@@ -11,12 +11,17 @@ Phases (each prints its own line; any failure exits non-zero):
   3. kernel vs plain: the SW kernel against its plain torch twin on the
      card at the main path's shapes (B = 32768, Lq = 160, Lr = 192):
      random codes with 5% N, planted near-identical pairs, all-N rows,
-     n_valid < B, three scoring parameter sets, and once through
-     align_overlaps_batch_chunked (both passes).  Then the sw_align_batch
-     composition (two kernel passes) against the same composition over
-     the twin at the flat window's shapes (B = 32768, Lq = Lr = 160):
-     three parameter sets, planted pairs, all-N rows.  All outputs must
-     be exactly equal; both sides are timed with CUDA events.
+     n_valid of 0, 1, B - 1000 and one off the block size, three scoring
+     parameter sets, and once through align_overlaps_batch_chunked (both
+     passes); then odd shapes at a batch off the block size ((Lq, Lr) =
+     (1, 1), (7, 5), (20, 192), (150, 192), (161, 192), and (1024, 1024)
+     with match 1).  Then the sw_align_batch composition (two kernel
+     passes) against the same composition over the twin at the flat
+     window's shapes (B = 32768, Lq = Lr = 160): three parameter sets,
+     planted pairs, all-N rows.  All outputs must be exactly equal; both
+     sides are timed with CUDA events, and each time is printed with its
+     cells, GCUPS and share of its bound: 8.5 int32 instructions per cell
+     over the SMs' dispatch rate (SMs x 128 lanes x clocks.max.sm).
   4. cuda vs cpu: a small FASTA DB, taxonomy and paired FASTQ made from
      --seed, run by the port's CLI on cuda and on cpu: classification;
      --sam-file on paired reads; --just-align --sam-file on single-end
@@ -30,6 +35,8 @@ Phases (each prints its own line; any failure exits non-zero):
      bench (16 genomes x 100 Mbp, ~1e8 stride-16 index k-mers) and
      262,144 planted 150 bp reads (131,072 pairs, 1% mutations) through
      the CLI on cuda; >= 99% of the pairs must get their genome's taxid.
+     Prints the kernel's launches and DP cells on this path and the
+     cells per second over the phase_a_sw stage.
   6. real-size SAM: phase 5's DB and reads with --sam-file on cuda;
      >= 99% of the planted pairs must have their R1 primary line on the
      planted genome within 5 of the planted position.
@@ -45,7 +52,9 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import collections
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -82,14 +91,84 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+# int32 instructions a DP cell needs at least with Hopper's DPX forms:
+# score byte permute 1, h' = max(diag + s, E, 0) 1, H = max(h', F) 1,
+# F' and E' 2 each (a subtract, then an add-max), the key's shift-add 1
+# and half of a three-way max over two keys
+OPS_PER_CELL = 8.5
+DISPATCH_LANES_PER_SM = 128  # thread-instructions an SM dispatches a clock
+MEMORY_BYTES_PER_S = 3.35e12
+
+
+def sm_clock_mhz() -> float:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(res.stdout.strip().splitlines()[0].split()[0])
+
+
+def sw_bound(cells: int, nbytes: int):
+    """(bound ms, what bounds it): the larger of OPS_PER_CELL
+    instructions per cell at the SMs' dispatch rate (4 schedulers x 32
+    lanes per clock at clocks.max.sm) and the bytes over the memory
+    rate."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_mhz() * 1e6
+    ops_ms = OPS_PER_CELL * cells / (sms * DISPATCH_LANES_PER_SM * clock) \
+        * 1e3
+    bytes_ms = nbytes / MEMORY_BYTES_PER_S * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def timing_line(name: str, ms: float, plain_ms: float, cells: int,
+                nbytes: int):
+    bound_ms, bound_by = sw_bound(cells, nbytes)
+    log(f"  timing {name}: kernel {ms:.3f} ms, {cells} cells "
+        f"({cells / ms / 1e6:.1f} GCUPS); bound {bound_ms:.3f} ms "
+        f"({bound_by}), {bound_ms / ms:.1%} of it; plain {plain_ms:.3f} ms")
+    return bound_ms, bound_by
+
+
+def sass_step_loop(lib_path: str, rows: int):
+    """The step loop of sw_group_kernel<rows, int8 scores> in the built
+    library's SASS (cuobjdump): the shortest backward-branch loop that
+    holds PRMT, as (instruction count, opcode counts); None without
+    cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    for func in sass.split("Function : ")[1:]:
+        if f"sw_group_kernelILi{rows}ELb1E" not in func.split("\n", 1)[0]:
+            continue
+        ins = [(int(a, 16), op.strip()) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        loops = []
+        for addr, op in ins:
+            m = re.search(r"BRA\S*\s+(?:\S+, )?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
+                if any("PRMT" in o for o in body):
+                    loops.append(body)
+        if loops:
+            body = min(loops, key=len)
+            return len(body), collections.Counter(
+                re.sub(r"^@!?U?P\w+\s+", "", o).split()[0] for o in body)
+    return None
+
+
 def max_abs_err(a, b) -> int:
     return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
                if len(x) else 0 for x, y in zip(a, b))
 
 
 def phase_kernel(rng, dev):
-    """Kernel vs plain twin at the main path's shapes; returns
-    (max_abs_err, kernel ms, plain ms)."""
+    """Kernel vs plain twin at the main path's shapes and odd shapes;
+    returns (max_abs_err, kernel ms, plain ms, (bound ms, bound_by))."""
     from kslam_tpu_torch.ops import sw, sw_cuda
     b, lq, lr = 32768, 160, 192
     worst = 0
@@ -128,7 +207,10 @@ def phase_kernel(rng, dev):
     q_n = q.copy()
     q_n[::7] = 4
     check("all-N rows", q_n, r, (2, 3, 5, 2))
-    check("n_valid < B", q, r, (2, 3, 5, 2), n_valid=b - 1000)
+    cfg = sw_cuda.launch_config(b, lq, lr)
+    off_block = 37 * (cfg.threads // cfg.group) + 5
+    for nv in (0, 1, b - 1000, off_block):
+        check(f"n_valid={nv}", q, r, (2, 3, 5, 2), n_valid=nv)
 
     # once through the window builder (both passes), on a small genome
     g = rng.integers(0, 4, 200_000).astype(np.uint8)
@@ -161,21 +243,33 @@ def phase_kernel(rng, dev):
     if err != 0 or sw_cuda.LAUNCHES != launches:
         raise AssertionError("chunked alignment: kernel != plain")
 
+    # odd shapes: query rows padded to the group's, tiny refs, the
+    # largest shape; a batch that is not a multiple of the block
+    ob = 4099
+    for olq, olr in ((1, 1), (7, 5), (20, 192), (150, 192), (161, 192)):
+        for params in ((2, 3, 5, 2), (1, 4, 6, 1), (3, 2, 2, 2)):
+            check(f"Lq={olq} Lr={olr} B={ob}", codes(shape=(ob, olq)),
+                  codes(shape=(ob, olr)), params)
+    check(f"Lq=1024 Lr=1024 B={ob}", codes(shape=(ob, 1024)),
+          codes(shape=(ob, 1024)), (1, 4, 6, 1))
+
     qd = torch.as_tensor(codes(), device=dev)
     rd = torch.as_tensor(codes(shape=(b, lr)), device=dev)
     ms = cuda_ms(lambda: sw_cuda.sw_forward_batch(qd, rd, 2, 3, 5, 2), 20)
     plain_ms = cuda_ms(
         lambda: sw_cuda.sw_forward_batch_plain(qd, rd, 2, 3, 5, 2), 3)
-    cells = b * lq * lr
-    log(f"  timing B={b} Lq={lq} Lr={lr}: kernel {ms:.3f} ms "
-        f"({cells / ms / 1e6:.1f} GCUPS), plain {plain_ms:.3f} ms")
-    return worst, ms, plain_ms
+    nbytes = (qd.numel() * qd.element_size() + rd.numel() * rd.element_size()
+              + 12 * b)
+    bound = timing_line(
+        f"sw_forward B={b} Lq={lq} Lr={lr} ({cfg.group} threads x "
+        f"{cfg.rows} rows per alignment)", ms, plain_ms, b * lq * lr, nbytes)
+    return worst, ms, plain_ms, bound
 
 
 def phase_align(rng, dev):
     """sw_align_batch (two kernel passes) vs the same composition over
     the plain twin at the flat window's shapes; returns (max_abs_err,
-    kernel ms, plain ms)."""
+    kernel ms, plain ms, (bound ms, bound_by))."""
     from kslam_tpu_torch.ops import sw_cuda
     b, l = 32768, 160
     worst = 0
@@ -212,9 +306,12 @@ def phase_align(rng, dev):
     ms = cuda_ms(lambda: sw_cuda.sw_align_batch(qd, rd, 2, 3, 5, 2), 20)
     plain_ms = cuda_ms(
         lambda: sw_cuda.sw_align_batch_plain(qd, rd, 2, 3, 5, 2), 3)
-    log(f"  timing sw_align_batch B={b} Lq=Lr={l}: kernel composition "
-        f"{ms:.3f} ms, plain composition {plain_ms:.3f} ms")
-    return worst, ms, plain_ms
+    # two passes; the codes in once, five int32 outputs per row
+    nbytes = 2 * qd.numel() * qd.element_size() + 20 * b
+    bound = timing_line(
+        f"sw_align_batch B={b} Lq=Lr={l} (two passes)", ms, plain_ms,
+        2 * b * l * l, nbytes)
+    return worst, ms, plain_ms, bound
 
 
 def write_taxonomy(path: str, taxids) -> None:
@@ -461,11 +558,11 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
 
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
-    sw_cuda.LAUNCHES = 0
+    sw_cuda.LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
     out = os.path.join(tmp, "real_out")
     wall = run_cli(db, out, os.path.join(tmp, "r1.fq"),
                    os.path.join(tmp, "r2.fq"), "cuda")
-    launches = sw_cuda.LAUNCHES
+    launches, cells = sw_cuda.LAUNCHES, sw_cuda.LAUNCH_CELLS
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
     per_read = dict(line.split("\t") for line in
@@ -481,13 +578,18 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
     log(f"  stages: {json.dumps(stages)}")
     log(f"  peak device memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated), SW launches {launches}")
+    sw_s = stages.get("phase_a_sw", {}).get("seconds", 0.0)
+    log(f"  SW kernel on the main path: {launches} launches, {cells} DP "
+        f"cells; phase_a_sw {sw_s:.3f} s, "
+        f"{cells / sw_s / 1e9 if sw_s else 0.0:.1f} G cells/s over the "
+        f"stage (window building and the reverse pass's gathers included)")
     log(f"  pairs classified to their genome's taxid: {hits}/{n_pairs} "
         f"({frac:.4%})")
     if frac < 0.99:
         raise AssertionError(f"only {frac:.4%} of planted pairs classified")
     if launches == 0:
         raise AssertionError("the main path launched no SW kernel")
-    return launches, dict(db=db, r1=os.path.join(tmp, "r1.fq"),
+    return launches, cells, dict(db=db, r1=os.path.join(tmp, "r1.fq"),
                           r2=os.path.join(tmp, "r2.fq"), g=g, at=at,
                           taxids=taxids)
 
@@ -611,6 +713,14 @@ def main() -> int:
     for line in sw_cuda.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    rows = sw_cuda.launch_config(32768, 160, 192).rows
+    loop = sass_step_loop(sw_cuda.load_library()._name, rows)
+    if loop is None:
+        log("  SASS instructions per cell: not measured (no cuobjdump)")
+    else:
+        log(f"  SASS step loop of the main path's kernel (R={rows}): "
+            f"{loop[0]} instructions for {rows} cells, "
+            f"{loop[0] / rows:.2f} per cell; {dict(loop[1].most_common())}")
     log(f"  native host library: {native.BUILD_REPORT}")
     if host_lib is None:
         raise AssertionError("the native host library is absent: "
@@ -618,16 +728,16 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     log("phase 3 kernel vs plain twin on the card")
-    err, ms, plain_ms = phase_kernel(rng, dev)
+    err, ms, plain_ms, bound = phase_kernel(rng, dev)
     # a generator of its own: phases 4-5 draw their data from rng alone
-    a_err, a_ms, a_plain_ms = phase_align(
+    a_err, a_ms, a_plain_ms, a_bound = phase_align(
         np.random.default_rng(args.seed + 1), dev)
 
     with tempfile.TemporaryDirectory(prefix="kslam_smoke_") as tmp:
         log("phase 4 CLI cuda vs cpu on a small DB")
         phase_e2e_small(rng, tmp)
         log(f"phase 5 real size: {args.mbp} Mbp DB, {args.pairs} pairs")
-        launches, ctx = phase_real(rng, tmp, args.mbp, args.pairs)
+        launches, cells, ctx = phase_real(rng, tmp, args.mbp, args.pairs)
         log(f"phase 6 real-size SAM: {args.pairs} pairs")
         sam_launches = phase_sam(ctx, tmp)
         log(f"phase 7 host-object path (--device-pipeline off): "
@@ -646,12 +756,17 @@ def main() -> int:
         "launches_by_path": {"device_pipeline": launches,
                              "sam": sam_launches,
                              "flat_window": flat_launches},
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, {
+        "cells_main_path": cells,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "bound_share": bound[0] / ms, "library_ms": None}, {
         "name": "sw_align_batch", "route": "cuda",
         "source": "kslam_tpu_torch/ops/sw_cuda.py",
         "replaces": "kslam_tpu/ops/sw_pallas.py:188",
         "launches": align_launches,
-        "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain_ms}]}
+        "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain_ms,
+        "bound_ms": a_bound[0], "bound_by": a_bound[1],
+        "bound_share": a_bound[0] / a_ms, "library_ms": None}]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -8,24 +8,24 @@ row (0 when the score is 0), ties broken by the smallest ref column, then
 the smallest query row, through the same packed int32 key
 (h << 20) + ((1023 - j) << 10) + (1023 - i) - (2^20 - 1).
 
-What bounds it on the H100: integer work.  Each DP cell costs ~15 int32
-ops (score select, three maxima for H, two for F, two for E, the key) and
-a pass over B = 32768 candidates of 160 x 192 cells is ~1e9 cells; the
-bytes are only the codes in (1 B per base, 5.8 MB) and 12 B per row out.
-The design keeps the DP in registers: one thread per alignment walks its
-query in strips of 16 rows; within a strip it sweeps all ref columns with
-the strip's H and E in registers and F carried down the strip exactly in
-sequence (the TPU kernel's log-depth lazy-F prefix max was a workaround
-for its vector unit).  Only the strip boundary (H and F of the strip's
-last row, 8 B per column) goes through global scratch, 1/16 of a byte per
-cell.  Codes are read transposed ([L, B]) so a warp's loads coalesce.
-Hopper's DPX max instructions and a warp-per-alignment layout are later
-work.
+What bounds it on the H100: integer work.  A cell needs at least 8.5
+int32 operations with Hopper's three-operand DPX max forms (score lookup,
+h', H, two for F, two for E, a shift-add and half a three-way max for the
+key); a pass over B = 32768
+candidates of 160 x 192 cells is ~1e9 cells, while the bytes are only the
+codes in and 12 B per row out.  The kernel keeps the whole DP in
+registers: a group of G threads per alignment, each holding R query rows,
+sweeps the ref columns as a wavefront with the row above handed down by
+warp shuffles (no device-memory scratch), scores a cell with one byte
+permute of a per-column score word staged in shared memory, and updates
+it with DPX max ops.  launch_config chooses G, R and the launch from the
+shapes.
 
 The wrapper sends a CPU tensor to the plain twin and a CUDA tensor to the
 kernel; a CUDA tensor never falls back.  LAUNCHES counts kernel launches;
 ALIGN_LAUNCHES those made through the sw_align_batch composition (the
-flat-window path of --device-pipeline off).
+flat-window path of --device-pipeline off); LAUNCH_CELLS the DP cells
+(B * Lq * Lr) of every launch.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +43,7 @@ from .sw import SWAlignments, SWEnds, _reverse_gather
 NEG = -(2 ** 30)
 LAUNCHES = 0          # kernel launches made by sw_forward_batch
 ALIGN_LAUNCHES = 0    # of those, the ones made through sw_align_batch
+LAUNCH_CELLS = 0      # DP cells (B * Lq * Lr) of those launches
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -51,6 +53,47 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-Xcompiler", "-fPIC")
 _LIB = None
 BUILD_LOG = ""        # nvcc/ptxas output of the build this process made
+
+# Row counts per thread instantiated in csrc/sw_forward.cu
+KERNEL_ROWS = (4, 8, 12, 16, 20, 24, 32)
+MAX_THREADS = 128               # threads per block (kMaxThreads)
+SMEM_BLOCK_LIMIT = 232_448      # shared memory one block may use (227 KB)
+
+
+class LaunchConfig(NamedTuple):
+    group: int        # G threads per alignment (a power of two <= 32)
+    rows: int         # R query rows per thread
+    threads: int      # threads per block
+    blocks: int       # grid size
+    stride: int       # shared-memory words per alignment (>= Lr)
+    smem: int         # dynamic shared memory per block, bytes
+
+
+def _config_for(b: int, lr: int, group: int, rows: int) -> LaunchConfig:
+    # stride = Lr rounded up to G mod 32 words, so that the alignments of
+    # one warp read distinct banks at the same step
+    stride = lr + (group - lr) % 32
+    threads = MAX_THREADS
+    # halve the block until its shared memory fits
+    while threads > max(group, 32) and \
+            (threads // group) * stride * 4 > SMEM_BLOCK_LIMIT:
+        threads //= 2
+    per_block = threads // group
+    return LaunchConfig(group, rows, threads, -(-b // per_block), stride,
+                        per_block * stride * 4)
+
+
+def launch_config(b: int, lq: int, lr: int) -> LaunchConfig:
+    """The kernel's launch for b alignments of lq x lr cells: the
+    smallest group G (a power of two) with 32 * G >= lq, then the
+    smallest R of KERNEL_ROWS with G * R >= lq (G = 8, R = 20 at the main
+    path's lq = 160; G = 32, R = 32 at 1024), with the block cut until
+    its shared memory fits."""
+    if b < 1 or not 1 <= lq <= 1024 or not 1 <= lr <= 1024:
+        raise ValueError(f"no SW kernel launch for B={b}, Lq={lq}, Lr={lr}")
+    group = next(g for g in (1, 2, 4, 8, 16, 32) if 32 * g >= lq)
+    rows = next(r for r in KERNEL_ROWS if group * r >= lq)
+    return _config_for(b, lr, group, rows)
 
 
 def _check_limits(lq: int, lr: int, match: int) -> None:
@@ -142,8 +185,7 @@ def _build_library():
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.kslam_sw_forward.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                     ci, ci, ci, vp]
+    lib.kslam_sw_forward.argtypes = [vp, vp, vp, vp] + [ci] * 14 + [vp]
     lib.kslam_sw_forward.restype = ci
     return lib
 
@@ -156,23 +198,23 @@ def load_library():
     return _LIB
 
 
-def _launch(q, r, match, mismatch, gap_open, gap_extend, n_valid) -> SWEnds:
-    global LAUNCHES
+def _launch(q, r, match, mismatch, gap_open, gap_extend, n_valid,
+            config: LaunchConfig | None = None) -> SWEnds:
+    global LAUNCHES, LAUNCH_CELLS
     dev = q.device
     b, lq = q.shape
     lr = r.shape[1]
     lib = load_library()
-    qT = q.t().to(torch.uint8).contiguous()
-    rT = r.t().to(torch.uint8).contiguous()
+    # int32 codes, row-major: the callers' layout, so no copy on the path
+    q = q.to(torch.int32).contiguous()
+    r = r.to(torch.int32).contiguous()
     if n_valid is None:
         nv = torch.full((1,), b, dtype=torch.int32, device=dev)
     else:
         nv = torch.as_tensor(n_valid, device=dev).to(torch.int32).reshape(1)
-    scratch = torch.empty((lr, b, 2), dtype=torch.int32, device=dev)
     out = torch.empty((3, b), dtype=torch.int32, device=dev)
-    for t, shape, dt in ((qT, (lq, b), torch.uint8), (rT, (lr, b), torch.uint8),
-                         (nv, (1,), torch.int32),
-                         (scratch, (lr, b, 2), torch.int32),
+    cfg = config or launch_config(b, lq, lr)
+    for t, shape, dt in ((r, (b, lr), torch.int32), (nv, (1,), torch.int32),
                          (out, (3, b), torch.int32)):
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
                 or not t.is_contiguous():
@@ -181,13 +223,16 @@ def _launch(q, r, match, mismatch, gap_open, gap_extend, n_valid) -> SWEnds:
                              f"{shape} contiguous")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.kslam_sw_forward(
-        qT.data_ptr(), rT.data_ptr(), nv.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), b, lq, lr, match, mismatch, gap_open, gap_extend,
+        q.data_ptr(), r.data_ptr(), nv.data_ptr(), out.data_ptr(), b, lq, lr,
+        cfg.group, cfg.rows, cfg.stride, cfg.threads,
+        cfg.blocks, cfg.smem, match, mismatch, gap_open, gap_extend,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream)
     if err != 0:
-        raise RuntimeError(f"SW kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"SW kernel launch failed: cudaError {err} "
+                           f"({cfg})")
     LAUNCHES += 1
+    LAUNCH_CELLS += b * lq * lr
     return SWEnds(out[0], out[1], out[2])
 
 

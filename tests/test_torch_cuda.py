@@ -1,5 +1,6 @@
 """Tests of kslam_tpu_torch that need a CUDA device: the hand-written SW
-kernel against its plain torch twin (alone and in the sw_align_batch
+kernel against its plain torch twin (odd shapes, n_valid, every row-count
+instantiation, wide scores; alone and in the sw_align_batch
 composition), the host screen on CUDA against the CPU, and the CUDA CLI
 runs (classification and SAM) against the CPU ones.  They import neither jax nor kslam_tpu, so they run
 on the card's machine with
@@ -68,18 +69,95 @@ def test_kernel_matches_plain(cuda_device, params):
         assert torch.equal(a[:64].cpu(), b_)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("lq,lr", [(1, 1), (17, 33), (152, 192)])
-def test_kernel_odd_shapes(cuda_device, lq, lr):
-    """Query lengths that are not a multiple of the kernel's row strip."""
-    rng = np.random.default_rng(lq)
-    q = rng.integers(0, 5, (300, lq)).astype(np.int32)
-    r = rng.integers(0, 5, (300, lr)).astype(np.int32)
-    qd, rd = (torch.as_tensor(x, device=cuda_device) for x in (q, r))
-    got = sw_cuda.sw_forward_batch(qd, rd, 2, 3, 5, 2)
-    ref = sw_cuda.sw_forward_batch_plain(qd, rd, 2, 3, 5, 2)
+def _assert_equal_to_plain(q, r, params, n_valid=None, config=None):
+    nv = None if n_valid is None else torch.tensor(
+        n_valid, dtype=torch.int32, device=q.device)
+    before, cells = sw_cuda.LAUNCHES, sw_cuda.LAUNCH_CELLS
+    if config is None:
+        got = sw_cuda.sw_forward_batch(q, r, *params, n_valid=nv)
+    else:
+        got = sw_cuda._launch(q, r, *params, nv, config=config)
+    assert sw_cuda.LAUNCHES == before + 1
+    assert sw_cuda.LAUNCH_CELLS == cells + q.numel() * r.shape[1]
+    ref = sw_cuda.sw_forward_batch_plain(q, r, *params, n_valid=nv)
     for a, b_ in zip(got, ref):
         assert torch.equal(a, b_)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lr", [(1, 1), (7, 5), (17, 33), (20, 192),
+                                   (150, 192), (152, 192), (160, 192),
+                                   (161, 192)])
+def test_kernel_odd_shapes(cuda_device, lq, lr):
+    """Shapes off the main path's exact fit: query rows padded with N up
+    to G * R, tiny refs, and a batch (3001) that is not a multiple of the
+    alignments per block."""
+    rng = np.random.default_rng(lq * 1000 + lr)
+    q, r = _similar(rng, 3001, min(lq, lr), lr, mut=0.05)
+    q = np.concatenate([q, rng.integers(0, 5, (3001, lq - q.shape[1]))],
+                       axis=1).astype(np.int32)
+    q[rng.random(q.shape) < 0.03] = 4
+    q[::13] = 4
+    qd, rd = (torch.as_tensor(x, device=cuda_device) for x in (q, r))
+    for params in PARAMS:
+        _assert_equal_to_plain(qd, rd, params)
+
+
+@pytest.mark.cuda
+def test_kernel_largest_shape(cuda_device):
+    """Lq = Lr = 1024 (G * R = 1024, the key's row limit), match 1."""
+    rng = np.random.default_rng(1024)
+    q, r = _similar(rng, 300, 1024, 1024, mut=0.1)
+    q[::7] = 4
+    _assert_equal_to_plain(torch.as_tensor(q, device=cuda_device),
+                           torch.as_tensor(r, device=cuda_device),
+                           (1, 4, 6, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["zero", "one", "b-1000", "odd"])
+def test_kernel_n_valid(cuda_device, which):
+    rng = np.random.default_rng(6)
+    b = 4133
+    q, r = _similar(rng, b, 160, 192, mut=0.05)
+    per_block = sw_cuda.launch_config(b, 160, 192)
+    per_block = per_block.threads // per_block.group
+    nv = {"zero": 0, "one": 1, "b-1000": b - 1000,
+          "odd": 7 * per_block + 3}[which]
+    qd, rd = (torch.as_tensor(x, device=cuda_device) for x in (q, r))
+    got = _assert_equal_to_plain(qd, rd, (2, 3, 5, 2), n_valid=nv)
+    assert (got.score[nv:] == 0).all() and (got.ref_end[nv:] == -1).all()
+    assert (got.read_end[nv:] == 0).all()
+    assert nv == 0 or int(got.score[:nv].min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", sw_cuda.KERNEL_ROWS)
+def test_kernel_every_instantiation(cuda_device, rows):
+    """Each row count R with a group G that covers Lq = 100, against the
+    twin."""
+    rng = np.random.default_rng(rows)
+    b, lq, lr = 1500, 100, 120
+    q, r = _similar(rng, b, lq, lr, mut=0.08)
+    q[rng.random((b, lq)) < 0.05] = 4
+    group = next(g for g in (1, 2, 4, 8, 16, 32) if g * rows >= lq)
+    cfg = sw_cuda._config_for(b, lr, group, rows)
+    qd, rd = (torch.as_tensor(x, device=cuda_device) for x in (q, r))
+    for params in PARAMS:
+        _assert_equal_to_plain(qd, rd, params, n_valid=b - 11, config=cfg)
+
+
+@pytest.mark.cuda
+def test_kernel_wide_scores(cuda_device):
+    """Scores outside int8 (match 200, mismatch 150) take the kernel's
+    compare-and-select path; uint8 codes are widened to int32."""
+    rng = np.random.default_rng(3)
+    q, r = _similar(rng, 2000, 10, 90, mut=0.1)
+    q[::9] = 4
+    qd, rd = (torch.as_tensor(x, device=cuda_device).to(torch.uint8)
+              for x in (q, r))
+    _assert_equal_to_plain(qd, rd, (200, 150, 300, 10), n_valid=1990)
 
 
 @pytest.mark.cuda
