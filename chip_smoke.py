@@ -43,6 +43,17 @@ Phases (each prints its own line; any failure exits non-zero):
   7. host-object path: --device-pipeline off on phase 5's DB with the
      first --host-pairs pairs (its pairing is Python); >= 99% of the
      pairs classified, with kernel launches through sw_align_batch.
+  8. real-size mesh: phase 5's DB and reads with --mesh 2x2
+     --shard-genomes on cuda (every cell on the visible cards, cycled);
+     the XML, _PerRead and _abbreviated files must be byte-identical to
+     phase 5's.  Prints the stage seconds (shard_placement: sharding and
+     placing the DB), the peak memory of every device, the mesh cells on
+     each device, and the kernel's launches and DP cells on this path.
+Phase 4 also runs, on cuda, --mesh 2x2 (classification), --mesh 1x4
+--shard-genomes --sam-file, and two processes of --coordinator
+localhost:PORT --num-processes 2 sharing the card; each must launch the
+kernel and write what the single-device CPU run wrote (the two-process
+SAM compared as one header and its body lines sorted).
 The line before the last is a JSON object describing each kernel, the
 last line the contract object {"ok": true, "device": {...}}.
 """
@@ -55,6 +66,7 @@ import json
 import collections
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -452,6 +464,99 @@ def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
     return outs["cuda"]
 
 
+def run_mesh_cuda(tmp: str, db: str, name: str, r1: str, r2, flags,
+                  sam: bool, want) -> int:
+    """One CLI run on cuda with mesh flags; its files must equal `want`
+    (the single-device runs' files).  Returns its kernel launches."""
+    from kslam_tpu_torch.ops import sw_cuda
+    out = os.path.join(tmp, f"small_{name}_cuda")
+    extra = list(flags) + (["--sam-file", out + ".sam"] if sam else [])
+    sw_cuda.LAUNCHES = 0
+    secs = run_cli(db, out, r1, r2, "cuda", extra)
+    launched = sw_cuda.LAUNCHES
+    same = read_outputs(out, sam) == want
+    log(f"  {name} cuda: {secs:.2f} s, {launched} SW kernel launches; "
+        f"outputs byte-identical to the single-device CPU run: {same}")
+    if not same or launched == 0:
+        raise AssertionError(f"{name}: outputs differ or no SW launch")
+    return launched
+
+
+# a port CLI process that reports its kernel launches on stdout
+_CLI_PROCESS = (
+    "import sys\n"
+    "from kslam_tpu_torch import cli\n"
+    "from kslam_tpu_torch.ops import sw_cuda\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print('sw_forward launches', sw_cuda.LAUNCHES, flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
+                      name: str = "small_two_process_cuda",
+                      visible=None) -> int:
+    """--coordinator localhost:PORT --num-processes 2 on cuda; returns
+    the processes' kernel launches.  visible: each process's
+    CUDA_VISIBLE_DEVICES (None: both see every card).  The outputs must
+    equal `want` ([SAM without @PG, XML, _PerRead, _abbreviated]), the
+    SAM as one header and its sorted body lines."""
+    out = os.path.join(tmp, name)
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CLI_PROCESS, "--db", db, "--output-file",
+         out, "--sam-file", out + ".sam", "--device", "cuda", *flags,
+         "--coordinator", f"localhost:{port}", "--num-processes", "2",
+         "--process-id", str(pid), r1, r2], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root,
+                 **({} if visible is None else
+                    {"CUDA_VISIBLE_DEVICES": visible[pid]})),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(2)]
+    results = []
+    try:
+        for p in procs:
+            results.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    launches = []
+    for pid, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+        m = re.search(r"sw_forward launches (\d+)", stdout)
+        if p.returncode != 0 or m is None:
+            raise AssertionError(f"process {pid} exited {p.returncode}:\n"
+                                 f"{stderr[-3000:]}")
+        launches.append(int(m.group(1)))
+
+    def split_sam(text: bytes):
+        lines = text.splitlines(keepends=True)
+        return ([x for x in lines if x.startswith(b"@")],
+                sorted(x for x in lines if not x.startswith(b"@")))
+    got = read_outputs(out, sam=True)
+    same = split_sam(got[0]) == split_sam(want[0]) and got[1:] == want[1:]
+    parts_left = [f for f in os.listdir(tmp)
+                  if f.startswith(f"{name}.sam.part")]
+    log(f"  two processes (--coordinator, gloo) on cuda"
+        + ("" if visible is None else f", cards {visible}")
+        + f": {secs:.2f} s, SW kernel launches {launches}; SAM (one "
+        f"header, sorted body) and XML/TSV equal to the single-device run: "
+        f"{same}")
+    if not same or min(launches) == 0 or parts_left:
+        raise AssertionError("the two-process run differs, left SAM parts "
+                             "or launched no SW kernel in a process")
+    return sum(launches)
+
+
 class SimulatedCrash(Exception):
     pass
 
@@ -470,7 +575,12 @@ def phase_e2e_small(rng, tmp: str) -> None:
     write_fastq(s1, names, r1)
     write_fastq(s2, names, r2)
     plain = compare_devices(tmp, db, "classify", s1, s2, [], sam=False)
-    compare_devices(tmp, db, "sam", s1, s2, [], sam=True)
+    sam = compare_devices(tmp, db, "sam", s1, s2, [], sam=True)
+    launches = {"mesh_2x2": run_mesh_cuda(
+        tmp, db, "mesh_2x2", s1, s2, ["--mesh", "2x2"], False, plain)}
+    launches["mesh_1x4_shard_genomes_sam"] = run_mesh_cuda(
+        tmp, db, "mesh_1x4_shard_genomes_sam", s1, s2,
+        ["--mesh", "1x4", "--shard-genomes"], True, sam)
     compare_devices(tmp, db, "just_align_single_end", s1, None,
                     ["--just-align"], sam=True)
     compare_devices(tmp, db, "host_path", s1, s2,
@@ -503,6 +613,10 @@ def phase_e2e_small(rng, tmp: str) -> None:
     flags = ["--num-reads-at-once", "200", "--resume"]
     full = compare_devices(tmp, db, "resume_uninterrupted", s1, s2, flags,
                            sam=True)
+    # three chunks of 200 pairs: process 0 takes chunks 0 and 2, process 1
+    # chunk 1
+    launches["two_process"] = run_two_processes(
+        tmp, db, s1, s2, ["--num-reads-at-once", "200"], full)
     out = os.path.join(tmp, "small_resumed_cuda")
     flags = flags + ["--sam-file", out + ".sam"]
     real = run_mod.process_chunk
@@ -531,6 +645,7 @@ def phase_e2e_small(rng, tmp: str) -> None:
     if not same or os.path.exists(out + ".cursor.json"):
         raise AssertionError("the resumed run differs from an "
                              "uninterrupted one")
+    return launches
 
 
 def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
@@ -591,7 +706,7 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
         raise AssertionError("the main path launched no SW kernel")
     return launches, cells, dict(db=db, r1=os.path.join(tmp, "r1.fq"),
                           r2=os.path.join(tmp, "r2.fq"), g=g, at=at,
-                          taxids=taxids)
+                          taxids=taxids, out=out)
 
 
 def phase_sam(ctx, tmp: str):
@@ -678,6 +793,57 @@ def phase_host_path(ctx, tmp: str, n_pairs: int):
     return launches, through_align
 
 
+def phase_mesh(ctx, tmp: str, shape: str = "2x2"):
+    """--mesh SHAPE --shard-genomes at real size, its cells cycled over
+    the visible cards; returns (SW launches, DP cells) of the run."""
+    from kslam_tpu_torch.ops import sw_cuda
+    from kslam_tpu_torch.parallel import dist
+    from kslam_tpu_torch.utils import metrics
+    d_axis, s_axis = (int(x) for x in shape.split("x"))
+    mesh = dist.build_mesh(dist.local_devices("cuda"), data=d_axis,
+                           index=s_axis)
+    devs = mesh.distinct()
+    metrics.reset()
+    for dev in devs:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sw_cuda.LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
+    out = os.path.join(tmp, f"real_mesh_{shape}")
+    wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
+                   ["--mesh", shape, "--shard-genomes"])
+    launches, cells = sw_cuda.LAUNCHES, sw_cuda.LAUNCH_CELLS
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) for d in devs}
+    stages = metrics.summary()
+    same = read_outputs(out, sam=False) == read_outputs(ctx["out"],
+                                                         sam=False)
+    n_reads = 2 * len(ctx["g"])
+    load_s = sum(stages.get(k, {}).get("seconds", 0.0)
+                 for k in ("db_load", "shard_placement"))
+    per_dev = collections.Counter(str(d) for row in mesh.devices
+                                  for d in row)
+    sec = {k: stages[k]["seconds"] for k in (
+        "db_load", "shard_placement", "pack_reads", "phase_a", "mesh_join",
+        "mesh_merge", "mesh_sw", "mesh_gather_back", "mesh_pair",
+        "insert_model", "phase_b", "taxonomy", "write_results")
+        if k in stages}
+    log(f"  mesh {shape} run: {n_reads} reads, CLI wall {wall:.2f} s "
+        f"({n_reads / wall * 60:.0f} reads/min), without the DB load and "
+        f"placement {wall - load_s:.2f} s "
+        f"({n_reads / (wall - load_s) * 60:.0f} reads/min)")
+    log(f"  stage seconds {json.dumps(sec)}")
+    log(f"  stages: {json.dumps(stages)}")
+    log(f"  mesh cells per device {dict(per_dev)}; peak device memory "
+        + ", ".join(f"{d} {b / 2**30:.2f} GiB" for d, b in peaks.items())
+        + " (torch.cuda.max_memory_allocated)")
+    log(f"  SW kernel on the mesh path: {launches} launches, {cells} DP "
+        f"cells; mesh_sw {sec.get('mesh_sw', 0.0):.3f} s")
+    log(f"  XML, _PerRead, _abbreviated byte-identical to phase 5: {same}")
+    if not same:
+        raise AssertionError("the mesh run's outputs differ from phase 5")
+    if launches == 0:
+        raise AssertionError("the mesh path launched no SW kernel")
+    return launches, cells
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -735,7 +901,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="kslam_smoke_") as tmp:
         log("phase 4 CLI cuda vs cpu on a small DB")
-        phase_e2e_small(rng, tmp)
+        small_launches = phase_e2e_small(rng, tmp)
         log(f"phase 5 real size: {args.mbp} Mbp DB, {args.pairs} pairs")
         launches, cells, ctx = phase_real(rng, tmp, args.mbp, args.pairs)
         log(f"phase 6 real-size SAM: {args.pairs} pairs")
@@ -747,6 +913,9 @@ def main() -> int:
                 f"(the host-object pairing is Python)")
         flat_launches, align_launches = phase_host_path(
             ctx, tmp, min(args.host_pairs, args.pairs))
+        log(f"phase 8 real-size mesh (--mesh 2x2 --shard-genomes): "
+            f"{args.pairs} pairs")
+        mesh_launches, mesh_cells = phase_mesh(ctx, tmp)
 
     kernels = {"kernels": [{
         "name": "sw_forward", "route": "cuda",
@@ -755,8 +924,11 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"device_pipeline": launches,
                              "sam": sam_launches,
-                             "flat_window": flat_launches},
-        "cells_main_path": cells,
+                             "flat_window": flat_launches,
+                             "mesh_2x2_shard_genomes": mesh_launches,
+                             **{f"small_{k}": v
+                                for k, v in small_launches.items()}},
+        "cells_main_path": cells, "cells_mesh_path": mesh_cells,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1],
         "bound_share": bound[0] / ms, "library_ms": None}, {

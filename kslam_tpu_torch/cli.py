@@ -2,7 +2,9 @@
 
 Usage:
   python -m kslam_tpu_torch.cli [options] --db=DATABASE --output-file OUT \
-      [--sam-file OUT.sam] R1FILE [R2FILE] [--device cuda|cpu]
+      [--sam-file OUT.sam] R1FILE [R2FILE] [--device cuda|cpu] \
+      [--mesh DxS [--shard-genomes]] \
+      [--coordinator HOST:PORT --num-processes P --process-id N]
   python -m kslam_tpu_torch.cli --build-host-table HOST.fa --output-file D
   python -m kslam_tpu_torch.cli --parse-fasta F.fa [...] --output-file DBDIR
   python -m kslam_tpu_torch.cli --parse-genbank F.gbff [...] --output-file D
@@ -10,9 +12,10 @@ Usage:
       --output-file DB
 
 The flags and database files are kslam_tpu.cli's, and so are the outputs
-(SAM, XML, _PerRead, _abbreviated), on one device.  The multi-device
-flags (--mesh, --shard-genomes, --coordinator) are not ported yet and
-raise instead of being ignored.
+(SAM, XML, _PerRead, _abbreviated): on one device, on a --mesh DxS of
+devices (parallel/dist.py; --shard-genomes splits the genomes too), and
+over processes with --coordinator HOST:PORT --num-processes P
+--process-id N, one command per process (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -71,9 +74,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="chunks always run one after another here")
     p.add_argument("--no-prefix-rows", action="store_true",
                    help="no effect: the port's join needs no prefix rows")
-    p.add_argument("--mesh", default="")
-    p.add_argument("--shard-genomes", action="store_true")
-    p.add_argument("--coordinator", default="")
+    p.add_argument("--mesh", default="",
+                   help="DATAxINDEX device mesh, e.g. 2x4: shard reads "
+                        "over the data axis and the k-mer index by range "
+                        "over the index axis (results identical to one "
+                        "device; cells cycle over the visible devices)")
+    p.add_argument("--shard-genomes", action="store_true",
+                   help="with --mesh: also partition the genome bases by "
+                        "entry range over the index axis (entry-owner SW "
+                        "routing; no device holds the whole database)")
+    # multi-process (one process per host or card; each process sees the
+    # cards CUDA_VISIBLE_DEVICES gives it)
+    p.add_argument("--coordinator", default="",
+                   help="torch.distributed (gloo) address HOST:PORT; "
+                        "process 0 listens there")
     p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--build-host-table", action="store_true",
@@ -89,19 +103,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "cuda without a card raises)")
     p.add_argument("input_files", nargs="*")
     return p
-
-
-# flags of paths the port does not run yet: (argument name, flag)
-_NOT_PORTED = (("mesh", "--mesh"), ("shard_genomes", "--shard-genomes"),
-               ("coordinator", "--coordinator"))
-
-
-def _refuse_unported(args) -> None:
-    used = [flag for name, flag in _NOT_PORTED if getattr(args, name)]
-    if used:
-        raise NotImplementedError(
-            f"not yet ported to kslam_tpu_torch: {', '.join(used)} "
-            f"(run kslam_tpu.cli for these)")
 
 
 def config_from_args(args, argv) -> PipelineConfig:
@@ -121,6 +122,8 @@ def config_from_args(args, argv) -> PipelineConfig:
         low_complexity_cutoff=args.low_complexity_cutoff,
         resume=args.resume,
         device_pipeline=args.device_pipeline,
+        mesh_shape=args.mesh,
+        genome_sharded=args.shard_genomes,
     )
 
 
@@ -189,7 +192,6 @@ def main(argv=None) -> int:
         db = TaxonomyDB.from_dumps(args.input_files[0], args.input_files[1])
         db.write_index(args.output_file)
         return 0
-    _refuse_unported(args)
     if not args.input_files:
         build_parser().print_help()
         return 1
@@ -197,6 +199,17 @@ def main(argv=None) -> int:
     config = config_from_args(args, argv)
     r1 = args.input_files[0]
     r2 = args.input_files[1] if len(args.input_files) > 1 else None
+    if args.coordinator:
+        from .parallel import multihost
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, device)
+        try:
+            multihost.metagenomic_analysis_distributed(
+                r1, r2, args.db, args.output_file, args.sam_file, config,
+                device)
+        finally:
+            multihost.shutdown()
+        return 0
     from .pipeline.run import metagenomic_analysis
     metagenomic_analysis(r1, r2, args.db, args.output_file, args.sam_file,
                          config, device)

@@ -253,21 +253,38 @@ cudaError_t launch_rows(const void* q, const void* r, const void* n_valid,
                               stream);
 }
 
+// Makes `device` current for a launch and gives the caller back its own
+// current device afterwards: PyTorch's "cuda" means the current device,
+// so a launch on another card of a mesh must not change it.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  q [b, lq] and r [b, lr] are
 // row-major int32 codes; out is int32 [3, b].  group = G (a power of two
 // <= 32), rows = R (one of the instantiated row counts), stride = the
 // shared-memory words per alignment, threads / blocks / smem the launch.
-// Launches on `stream` of `device` without synchronising; returns
-// cudaGetLastError() of the launch (0 on success).
+// Launches on `stream` of `device` without synchronising, and leaves the
+// caller's current device as it was; returns cudaGetLastError() of the
+// launch (0 on success).
 extern "C" int kslam_sw_forward(const void* q, const void* r,
                                 const void* n_valid, void* out, int b,
                                 int lq, int lr, int group, int rows,
                                 int stride, int threads, int blocks,
                                 int smem, int match, int mismatch, int go,
                                 int ge, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b <= 0) return 0;
   int log_g = 0;

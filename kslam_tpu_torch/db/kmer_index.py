@@ -12,8 +12,9 @@ Layout (struct-of-arrays, device friendly):
   offset   int32  [M]   forward k-mer start within the entry
   rc       bool   [M]   canonical form is the reverse complement
 
-Host part only (build, save, load): the device copy of the columns is
-pipeline/align.DeviceDB.from_index.
+Host part only (build, save, load, range shards): the device copy of the
+columns is pipeline/align.DeviceDB.from_index, or, on a mesh,
+parallel/dist.place_sharded_db.
 """
 
 from __future__ import annotations
@@ -192,3 +193,24 @@ class KmerIndex:
             out.cache_dir = directory
             return out
         return cls.load_npy(directory, mmap=True)  # build_streamed layout
+
+    # --- sharding ---
+
+    def shard_bounds(self, num_shards: int) -> np.ndarray:
+        """Split points (by array position) giving near-equal shards that
+        never split a run of equal k-mers (a pileup lives on one shard)."""
+        bounds = [0]
+        m = len(self.kmers)
+        for s in range(1, num_shards):
+            pos = (m * s) // num_shards
+            # advance past the current equal-k-mer run
+            while pos < m and pos > 0 and self.kmers[pos] == self.kmers[pos - 1]:
+                pos += 1
+            bounds.append(pos)
+        bounds.append(m)
+        return np.array(bounds, dtype=np.int64)
+
+    def shard(self, bounds: np.ndarray, s: int) -> "KmerIndex":
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        return KmerIndex(self.kmers[lo:hi], self.entry_id[lo:hi],
+                         self.offset[lo:hi], self.rc[lo:hi])

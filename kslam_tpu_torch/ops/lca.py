@@ -113,8 +113,8 @@ def _lca_nodes(a, b, tables: LcaTables):
     return torch.where(equal_now, a2, cand)
 
 
-def _segment_reduce(values, seg_id, num_segments: int, reduce: str,
-                    empty: int):
+def segment_reduce(values, seg_id, num_segments: int, reduce: str,
+                   empty: int):
     """Per-segment max/min of int64 `values`; `empty` for segments with no
     rows."""
     out = torch.full((num_segments,), empty, dtype=torch.int64,
@@ -139,12 +139,12 @@ def lca_segments_reduce(taxids, seg_id, valid, tables: LcaTables,
     i64min, i64max = -2**63, 2**63 - 1
 
     def smax(x):
-        return _segment_reduce(x.to(torch.int64), seg_id, num_segments,
-                               "amax", i64min)
+        return segment_reduce(x.to(torch.int64), seg_id, num_segments,
+                              "amax", i64min)
 
     def smin(x):
-        return _segment_reduce(x.to(torch.int64), seg_id, num_segments,
-                               "amin", i64max)
+        return segment_reduce(x.to(torch.int64), seg_id, num_segments,
+                              "amin", i64max)
 
     seg_any_zero = smax(is_zero) > 0
     seg_any_unknown = smax(is_unknown) > 0

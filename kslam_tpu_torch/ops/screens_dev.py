@@ -11,7 +11,10 @@ of the reference's per-read / per-entry loops over columnar pair sets
     ascending; oversize FULL pairs mutate into R2-only halves in place and
     append an R1 half-pair at the group tail (PairedOverlap.h:416-430),
   * pseudo-assembly chains: per entry over ref_start-sorted pairs, chains
-    break where ref_start > runningMax(ref_end) - 20.
+    break where ref_start > runningMax(ref_end) - 20; chains of length > 1
+    rescore every member coverage * avgScorePerBase * length, exactly on
+    the host in the CLI pipeline (pipeline/device_path.rescore_chains) or
+    in float32 on the device (pseudo_assembly_device).
 
 Columns that are uint32 in the reference package (combined_score bits,
 insert_size) are int64 here: combined_score holds the int32 bit pattern
@@ -24,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from .lca import segment_reduce
 from .rows import lex_perm, shift1
 
 NONE = -1
@@ -202,3 +206,55 @@ def pseudo_assembly_chains(cols: PairCols):
     brk = (out.ref_start.to(torch.int64) > prevmax - 20) | first_e
     cseg = torch.cumsum(brk.to(torch.int64), 0) - 1
     return perm, cseg
+
+
+def pseudo_assembly_device(cols: PairCols) -> PairCols:
+    """pseudoAssembly (PairedOverlap.h:471-576) with float32 rescoring on
+    the device: rescores in place, input order preserved (the reference
+    package's dry-run and probe path; the CLI pipeline rescores exactly on
+    the host).
+
+    Every step repeats the reference package's float32 arithmetic: IEEE
+    0/0 -> nan and x/0 -> inf, non-finite scores -> 0, trunc -> int64
+    (saturating, as XLA's convert does) -> & 0xFFFFFFFF -> int32.  The
+    per-chain float32 sums add rows in chain order, as XLA:CPU's scatter
+    does: scatter_add on the CPU adds in row order, so the CPU result
+    equals the reference package's exactly; on CUDA its atomics add in
+    any order, so a chain's sum can differ in its last bits."""
+    p = cols.group.shape[0]
+    dev = cols.group.device
+    perm, cseg = pseudo_assembly_chains(cols)
+    out = _permute(cols, perm)
+    valid = out.valid
+    span = torch.abs(out.ref_end - out.ref_start).to(torch.float32)
+    score_f = (out.combined_score & U32_MASK).to(torch.float32)
+    pb = torch.where(span != 0, score_f / span, torch.inf)
+
+    def seg_sum(x):
+        return torch.zeros(p, dtype=x.dtype, device=dev).scatter_add_(
+            0, cseg, x)
+
+    cnt = seg_sum(valid.to(torch.int64))
+    nb = seg_sum(torch.where(valid, span, 0.0))
+    pbs = seg_sum(torch.where(valid, pb, 0.0))
+    hi = segment_reduce(torch.where(valid, out.ref_end, -2**31)
+                        .to(torch.int64), cseg, p, "amax", -2**31)
+    start0 = segment_reduce(torch.where(valid, out.ref_start, 2**31 - 1)
+                            .to(torch.int64), cseg, p, "amin", 2**31 - 1)
+
+    length = (hi - start0).to(torch.float32)
+    cov = nb / length                    # 0/0 -> nan, x/0 -> inf (IEEE)
+    avg = pbs / cnt.to(torch.float32)
+    new_score_f = cov * avg * length
+    tr = torch.where(torch.isfinite(new_score_f), new_score_f, 0.0)
+    # float -> int64 saturates like XLA's convert; torch on the CPU would
+    # wrap scores >= 2^63 to int64 min
+    i64 = torch.where(tr >= 2.0**63, INT64_MAX,
+                      torch.trunc(tr).to(torch.int64))
+    new_score = (i64 & U32_MASK).to(torch.int32).to(torch.int64)
+    rescored = (cnt[cseg] > 1) & valid
+    score_sorted = torch.where(rescored, new_score[cseg], out.combined_score)
+    # scatter scores back to the input order
+    score_final = torch.empty_like(score_sorted).index_put_((perm,),
+                                                            score_sorted)
+    return cols._replace(combined_score=score_final)

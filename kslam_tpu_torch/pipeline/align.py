@@ -37,6 +37,17 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1)).bit_length()
 
 
+def index_words_np(kmer_words, entry_id, offset, rc):
+    """The join's two index columns as int64 host arrays: the sorted
+    k-mer keys (ops/kmers.py key encoding) and the per-slot word
+    entry<<33 | offset<<1 | rc."""
+    keys = kmers.keys_from_words_np(kmer_words)
+    pack = ((np.asarray(entry_id).astype(np.uint64) << np.uint64(33))
+            | (np.asarray(offset).astype(np.uint64) << np.uint64(1))
+            | np.asarray(rc).astype(np.uint64)).view(np.int64)
+    return keys, pack
+
+
 @dataclasses.dataclass
 class DeviceDB:
     """Database tensors on one device."""
@@ -54,10 +65,8 @@ class DeviceDB:
         flat_scodes adds the flat [G] genome copy that only the
         host-object path's window gather reads."""
         dev = torch.device(device)
-        keys = kmers.keys_from_words_np(kidx.kmers)
-        pack = ((np.asarray(kidx.entry_id).astype(np.uint64) << np.uint64(33))
-                | (np.asarray(kidx.offset).astype(np.uint64) << np.uint64(1))
-                | np.asarray(kidx.rc).astype(np.uint64)).view(np.int64)
+        keys, pack = index_words_np(kidx.kmers, kidx.entry_id, kidx.offset,
+                                    kidx.rc)
         scodes = encode.sw_codes_np(gindex.bases_concat)
         chunks = sw.genome_chunks_from_scodes(scodes)
         return cls(

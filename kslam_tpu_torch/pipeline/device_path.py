@@ -14,6 +14,11 @@ sizes, PairedOverlap.h:300-360):
   objects: chunk_to_host_pairs builds the host object model of the
            surviving pairs (SAM output and --just-align).
 
+phase_b is one batch's phase B with the float32 device rescoring of the
+reference package's dry run; the CLI never runs it.  On a mesh, phase A
+is parallel/dist.make_sharded_phase_a, built from decode_reads and
+screen_and_pair.
+
 Shapes are dynamic: every stage is sized to the rows that exist (a few
 host reads of counts per batch), so nothing is ever dropped to a static
 capacity and no emit-all retry is needed.
@@ -54,6 +59,53 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def decode_reads(bases, window_len: int, nbits=None, kbits=None):
+    """(k-mer codes, SW codes) of a batch.  bases: ASCII u8 [N, L], or
+    with nbits/kbits the packed 2-bit plane [N, ceil(L/4)] of
+    encode.pack_reads_np and its bit sidecars."""
+    if nbits is None:
+        return encode.kmer_codes(bases), encode.sw_codes(bases)
+    codes2 = encode.unpack_codes(bases, window_len)
+    kcodes = torch.where(encode.unpack_bits(kbits, window_len),
+                         torch.zeros_like(codes2), codes2)
+    read_scodes = torch.where(encode.unpack_bits(nbits, window_len),
+                              torch.full_like(codes2, 4), codes2)
+    return kcodes, read_scodes
+
+
+def screen_and_pair(res: match.Overlaps, al: sw.SWAlignments, lengths,
+                    midpoint, score_threshold: int,
+                    paired: bool) -> PhaseAOut:
+    """The end of phase A on the compacted, SW-validated candidates: the
+    score screen, then the pairing sweep (paired) or one R1-only half pair
+    per overlap (single-end)."""
+    score = torch.where(res.valid, al.score, 0)
+    # screenOverlapsByScoreThreshold (Overlap.h:329-341)
+    keep = res.valid & (score >= score_threshold)
+    res = res._replace(valid=keep, count=keep.sum().to(torch.int32))
+    n = res.read_id.shape[0]
+    dev = res.read_id.device
+    if paired:
+        pairs = pairing_dev.pair_overlaps_device(
+            res.read_id, res.entry_id, res.rel_pos, res.rc, res.valid,
+            score, al.ref_begin, al.ref_end, lengths, midpoint)
+    else:
+        # single-end: every overlap becomes an R1-only half pair in input
+        # order (PairedOverlap.h:280-298)
+        rows = torch.arange(n, dtype=torch.int32, device=dev)
+        pairs = pairing_dev.DevicePairs(
+            r1_idx=torch.where(res.valid, rows, pairing_dev.NONE),
+            r2_idx=torch.full((n,), pairing_dev.NONE, dtype=torch.int32,
+                              device=dev),
+            combined_score=score.to(torch.int64),
+            entry_id=res.entry_id, ref_start=al.ref_begin,
+            ref_end=al.ref_end,
+            insert_size=torch.zeros(n, dtype=torch.int64, device=dev),
+            count=res.count)
+    return PhaseAOut(res, score, al.ref_begin, al.ref_end, al.query_begin,
+                     al.query_end, pairs)
+
+
 def phase_a(bases, lengths, midpoint, idx_kmers, idx_pack, genome_chunks,
             entry_offsets, match_s: int, mismatch: int, gap_open: int,
             gap_extend: int, window_len: int, score_threshold: int = 0,
@@ -65,15 +117,7 @@ def phase_a(bases, lengths, midpoint, idx_kmers, idx_pack, genome_chunks,
     lengths: int32 [N]; midpoint: first R2 row (paired)."""
     dev = bases.device
     with metrics.stage("phase_a_seed"):
-        if nbits is not None:
-            codes2 = encode.unpack_codes(bases, window_len)
-            kcodes = torch.where(encode.unpack_bits(kbits, window_len),
-                                 torch.zeros_like(codes2), codes2)
-            read_scodes = torch.where(encode.unpack_bits(nbits, window_len),
-                                      torch.full_like(codes2, 4), codes2)
-        else:
-            kcodes = encode.kmer_codes(bases)
-            read_scodes = encode.sw_codes(bases)
+        kcodes, read_scodes = decode_reads(bases, window_len, nbits, kbits)
         km, off, rc, valid = kmers.read_kmers_from_codes(kcodes, lengths)
         res = match.match_overlaps(km, off, rc, valid, lengths, idx_kmers,
                                    idx_pack)
@@ -87,31 +131,10 @@ def phase_a(bases, lengths, midpoint, idx_kmers, idx_pack, genome_chunks,
             window_len=window_len, n_valid=res.count)
         _sync(dev)
     with metrics.stage("phase_a_pair"):
-        score = torch.where(res.valid, al.score, 0)
-        # screenOverlapsByScoreThreshold (Overlap.h:329-341)
-        keep = res.valid & (score >= score_threshold)
-        res = res._replace(valid=keep, count=keep.sum().to(torch.int32))
-        n = res.read_id.shape[0]
-        if paired:
-            pairs = pairing_dev.pair_overlaps_device(
-                res.read_id, res.entry_id, res.rel_pos, res.rc, res.valid,
-                score, al.ref_begin, al.ref_end, lengths, midpoint)
-        else:
-            # single-end: every overlap becomes an R1-only half pair in
-            # input order (PairedOverlap.h:280-298)
-            rows = torch.arange(n, dtype=torch.int32, device=dev)
-            pairs = pairing_dev.DevicePairs(
-                r1_idx=torch.where(res.valid, rows, pairing_dev.NONE),
-                r2_idx=torch.full((n,), pairing_dev.NONE, dtype=torch.int32,
-                                  device=dev),
-                combined_score=score.to(torch.int64),
-                entry_id=res.entry_id, ref_start=al.ref_begin,
-                ref_end=al.ref_end,
-                insert_size=torch.zeros(n, dtype=torch.int64, device=dev),
-                count=res.count)
+        out = screen_and_pair(res, al, lengths, midpoint, score_threshold,
+                              paired)
         _sync(dev)
-    return PhaseAOut(res, score, al.ref_begin, al.ref_end, al.query_begin,
-                     al.query_end, pairs)
+    return out
 
 
 def _group_of(pairs: pairing_dev.DevicePairs, read_id, midpoint):
@@ -254,6 +277,22 @@ def rescore_chains(cols: screens_dev.PairCols, perm, cseg
         new.astype(np.uint32).view(np.int32).astype(np.int64),
         device=rows.device)
     return apply_rescored(cols, rows, new_i64)
+
+
+def phase_b(a: PhaseAOut, midpoint, max_insert, entry_taxids, lca_tables,
+            fraction: float, perform_pseudo_assembly: bool,
+            paired: bool = True) -> PhaseBOut:
+    """Phase B of one batch with the float32 device pseudo-assembly
+    rescoring (screens_dev.pseudo_assembly_device), the reference
+    package's dry-run and probe path; the CLI pipeline runs
+    run_chunk_phase_b, which rescores chains exactly on the host.
+    Composition of phase_b_screens + phase_b_finish."""
+    cols = phase_b_screens(a, midpoint, max_insert, fraction=fraction,
+                           paired=paired)
+    if perform_pseudo_assembly:
+        cols = screens_dev.pseudo_assembly_device(cols)
+    return phase_b_finish(cols, entry_taxids, lca_tables, fraction=fraction,
+                          rescreen=perform_pseudo_assembly)
 
 
 def phase_b_finish(cols: screens_dev.PairCols, entry_taxids, lca_tables,

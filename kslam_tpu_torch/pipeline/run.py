@@ -7,8 +7,10 @@ low-complexity reads counted (--low-complexity-cutoff), then runs one of
 two paths on the run's device:
 
   * the device pipeline (--device-pipeline on, and auto): device batches
-    of config.read_batch reads through phase A, one chunk-wide insert
-    model on the host, the chunk-wide phase B; the per-read taxonomy
+    of config.read_batch reads through phase A (or, with --mesh DxS, one
+    sub-batch per data row through the sharded phase A of
+    parallel/dist.py), one chunk-wide insert model on the host, the
+    chunk-wide phase B; the per-read taxonomy
     comes straight off the device columns, or, with SAM output or
     --just-align, through the host object model
     (device_path.chunk_to_host_pairs);
@@ -40,6 +42,7 @@ from ..io import xml_results
 from ..io.fastq import ReadBatch, stream_read_batches
 from ..ops import encode, lca as lca_ops, screen as screen_ops
 from ..ops.sw import check_params
+from ..parallel import dist
 from ..utils import metrics
 from ..utils.logging import log
 from . import align, classify, device_path, pairing
@@ -71,11 +74,16 @@ def apply_host_screen(batch: ReadBatch, table, kind: str) -> ReadBatch:
 
 def process_chunk(batch: ReadBatch, db: align.DeviceDB,
                   config: PipelineConfig, entry_taxids,
-                  lca_tables):
+                  lca_tables, mesh=None, sharded_db=None):
     """One chunk through phase A (per device batch), the chunk-wide
     insert model and phase B; returns the chunk's (PhaseBOut, overlap
-    columns) of device_path.run_chunk_phase_b."""
-    dev = db.kmers.device
+    columns) of device_path.run_chunk_phase_b.
+
+    mesh/sharded_db (parallel/dist.py): phase A runs as one sharded step
+    over a (data, index) mesh instead: the chunk splits into one
+    sub-batch per data row (db is not read), and each row's output is
+    consumed by the same chunk-wide phase B as a device batch, so the
+    results are those of one device."""
     paired = batch.paired
     # pad reads to the chunk's real maximum (rounded to 8), as the
     # reference package does
@@ -83,10 +91,14 @@ def process_chunk(batch: ReadBatch, db: align.DeviceDB,
     l = min(config.max_read_len, max(-(-l_data // 8) * 8, 40))
     chunk_mid = batch.midpoint if paired else 0
     n_units = chunk_mid if paired else batch.num_reads   # pairs or reads
-    unit = max(config.read_batch // (2 if paired else 1), 1)
-    if n_units <= unit:
-        unit = max(n_units, 1)
-    num_batches = -(-n_units // unit) if n_units else 1
+    if mesh is not None:
+        num_batches = mesh.shape["data"]
+        unit = max(-(-n_units // num_batches), 1)
+    else:
+        unit = max(config.read_batch // (2 if paired else 1), 1)
+        if n_units <= unit:
+            unit = max(n_units, 1)
+        num_batches = -(-n_units // unit) if n_units else 1
     mid_local = unit if paired else 0
     rows = unit * (2 if paired else 1)
 
@@ -106,21 +118,38 @@ def process_chunk(batch: ReadBatch, db: align.DeviceDB,
         return bases, lengths
 
     p = config.sw
-    a_list = []
-    for i in range(num_batches):
+    if mesh is not None:
+        step = dist.make_sharded_phase_a(
+            mesh, paired=paired, match_s=p.match, mismatch=p.mismatch,
+            gap_open=p.gap_open, gap_extend=p.gap_extend, window_len=l,
+            score_threshold=config.score_threshold,
+            genome_sharded=config.genome_sharded)
         with metrics.stage("pack_reads"):
-            bases, lengths = batch_arrays(i)
-            packed, nbits, kbits = encode.pack_reads_np(bases)
-        with metrics.stage("phase_a", items=rows):
-            a_list.append(device_path.phase_a(
-                torch.as_tensor(packed).to(dev),
-                torch.as_tensor(lengths).to(dev), mid_local,
-                db.kmers, db.idx_pack, db.genome_chunks, db.entry_offsets,
-                match_s=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
-                gap_extend=p.gap_extend, window_len=l,
-                score_threshold=config.score_threshold, paired=paired,
-                nbits=torch.as_tensor(nbits).to(dev),
-                kbits=torch.as_tensor(kbits).to(dev)))
+            parts = [batch_arrays(i) for i in range(num_batches)]
+            packed, nbits, kbits = encode.pack_reads_np(
+                np.concatenate([b for b, _ in parts]))
+            lengths = np.concatenate([le for _, le in parts])
+        with metrics.stage("phase_a", items=rows * num_batches):
+            a_list = dist.split_phase_a(
+                step(packed, lengths, mid_local, sharded_db, nbits=nbits,
+                     kbits=kbits), mesh)
+    else:
+        dev = db.kmers.device
+        a_list = []
+        for i in range(num_batches):
+            with metrics.stage("pack_reads"):
+                bases, lengths = batch_arrays(i)
+                packed, nbits, kbits = encode.pack_reads_np(bases)
+            with metrics.stage("phase_a", items=rows):
+                a_list.append(device_path.phase_a(
+                    torch.as_tensor(packed).to(dev),
+                    torch.as_tensor(lengths).to(dev), mid_local,
+                    db.kmers, db.idx_pack, db.genome_chunks,
+                    db.entry_offsets, match_s=p.match, mismatch=p.mismatch,
+                    gap_open=p.gap_open, gap_extend=p.gap_extend,
+                    window_len=l, score_threshold=config.score_threshold,
+                    paired=paired, nbits=torch.as_tensor(nbits).to(dev),
+                    kbits=torch.as_tensor(kbits).to(dev)))
 
     max_insert = 2**32 - 1
     if paired:
@@ -141,6 +170,24 @@ def process_chunk(batch: ReadBatch, db: align.DeviceDB,
             fraction=config.score_fraction_threshold,
             perform_pseudo_assembly=config.perform_pseudo_assembly,
             paired=paired)
+
+
+def chunk_objects(b: device_path.PhaseBOut, ov_cols, batch: ReadBatch):
+    """The host object model of a chunk's device result (SAM output,
+    --just-align), each read carrying its device LCA."""
+    with metrics.stage("to_host_pairs"):
+        reads, lcas = device_path.chunk_to_host_pairs(
+            b, ov_cols, batch.midpoint if batch.paired else 0)
+        for read in reads:
+            read.device_lca = lcas.get(read.r1_pos, 0)
+    return reads
+
+
+def device_tables(gindex: GenbankIndex, taxdb: TaxonomyDB, device):
+    """(entry taxid column, LCA tables) on `device`: what phase B reads
+    besides the chunk's own columns."""
+    return (torch.as_tensor(gindex.taxonomy_ids.astype(np.int64)).to(device),
+            lca_ops.build_device_tables(taxdb, device))
 
 
 def process_batch(batch: ReadBatch, db: align.DeviceDB,
@@ -207,18 +254,37 @@ def metagenomic_analysis(r1_path: str, r2_path: Optional[str],
     config.paired_data = bool(r2_path)
     # "auto" runs the device pipeline: this port runs it on any device
     use_device = config.device_pipeline != "off"
+    db = mesh = sharded_db = None
     with metrics.stage("db_load"):
         taxdb = TaxonomyDB.read_index(f"{database_dir}/taxDB") \
             if not config.just_align else TaxonomyDB()
         gindex = GenbankIndex.load(database_dir)
         kidx = KmerIndex.load(database_dir)
-        db = align.DeviceDB.from_index(gindex, kidx, device,
-                                       flat_scodes=not use_device)
-        entry_taxids = lca_tables = None
-        if use_device:
-            entry_taxids = torch.as_tensor(
-                gindex.taxonomy_ids.astype(np.int64)).to(device)
-            lca_tables = lca_ops.build_device_tables(taxdb, device)
+        if config.mesh_shape:
+            # the reference package's parse (a malformed shape raises the
+            # same ValueError); a mesh forces the device pipeline
+            d_axis, s_axis = (int(x) for x in config.mesh_shape.split("x"))
+            use_device = True
+        else:
+            db = align.DeviceDB.from_index(gindex, kidx, device,
+                                           flat_scodes=not use_device)
+    if config.mesh_shape:
+        with metrics.stage("shard_placement"):
+            mesh = dist.build_mesh(dist.local_devices(device),
+                                   data=d_axis, index=s_axis)
+            sharded_db = dist.place_sharded_db(
+                mesh, kidx, encode.sw_codes_np(gindex.bases_concat),
+                gindex.entry_offsets, genome_sharded=config.genome_sharded)
+        log(f"Using (data={d_axis}, index={s_axis}) device mesh"
+            + (" with entry-owner genome shards"
+               if config.genome_sharded else ""))
+    entry_taxids = lca_tables = None
+    if use_device:
+        with metrics.stage("db_load"):
+            # phase B runs where split_phase_a puts a mesh's rows
+            entry_taxids, lca_tables = device_tables(
+                gindex, taxdb,
+                device if mesh is None else mesh.devices[0][0])
     host_table = host_kind = None
     if config.host_screen_dir:
         from ..db.host_table import HostTable
@@ -308,14 +374,12 @@ def metagenomic_analysis(r1_path: str, r2_path: Optional[str],
                              num_reads)
                 continue
             b, ov_cols = process_chunk(batch, db, config, entry_taxids,
-                                       lca_tables)
+                                       lca_tables, mesh=mesh,
+                                       sharded_db=sharded_db)
             if sam_file or config.just_align:
-                with metrics.stage("to_host_pairs"):
-                    reads, lcas = device_path.chunk_to_host_pairs(
-                        b, ov_cols, batch.midpoint if batch.paired else 0)
-                    for read in reads:
-                        read.device_lca = lcas.get(read.r1_pos, 0)
-                handle_chunk(sam_file, batch, reads, None, num_reads)
+                handle_chunk(sam_file, batch,
+                             chunk_objects(b, ov_cols, batch), None,
+                             num_reads)
             else:
                 with metrics.stage("taxonomy"):
                     arrays = classify.fetch_classify_arrays(b)

@@ -1,8 +1,10 @@
 """Tests of kslam_tpu_torch that need a CUDA device: the hand-written SW
 kernel against its plain torch twin (odd shapes, n_valid, every row-count
 instantiation, wide scores; alone and in the sw_align_batch
-composition), the host screen on CUDA against the CPU, and the CUDA CLI
-runs (classification and SAM) against the CPU ones.  They import neither jax nor kslam_tpu, so they run
+composition), the host screen on CUDA against the CPU, the sharded phase
+A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
+against the CPU, and the CUDA CLI runs (classification and SAM) against
+the CPU ones.  They import neither jax nor kslam_tpu, so they run
 on the card's machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -20,7 +22,8 @@ from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
 from kslam_tpu_torch.db.host_table import HostTable
 from kslam_tpu_torch.db.kmer_index import KmerIndex
 from kslam_tpu_torch.db.taxonomy import TaxonomyDB
-from kslam_tpu_torch.ops import screen, sw, sw_cuda
+from kslam_tpu_torch.ops import encode, screen, screens_dev, sw, sw_cuda
+from kslam_tpu_torch.parallel import dist
 
 torch.set_num_threads(1)
 
@@ -293,3 +296,101 @@ def test_sam_cli_cuda_matches_cpu(cuda_device, tmp_path, flags):
                              if not line.startswith("@PG")])
     assert outs["cuda"] == outs["cpu"]
     assert len(outs["cuda"][3]) > 400
+
+
+def _leaves(x):
+    """The tensors of nested NamedTuples, in field order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _leaves(v)]
+    return []
+
+
+def _mesh_phase_a(device, gshard, gindex, kidx, bases, lengths, mid):
+    mesh = dist.build_mesh(dist.local_devices(device), data=2, index=2)
+    sdb = dist.place_sharded_db(mesh, kidx,
+                                encode.sw_codes_np(gindex.bases_concat),
+                                gindex.entry_offsets, genome_sharded=gshard)
+    step = dist.make_sharded_phase_a(
+        mesh, paired=True, match_s=2, mismatch=3, gap_open=5, gap_extend=2,
+        window_len=160, genome_sharded=gshard)
+    packed, nbits, kbits = encode.pack_reads_np(bases)
+    return dist.split_phase_a(step(packed, lengths, mid, sdb, nbits=nbits,
+                                   kbits=kbits), mesh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gshard", [False, True],
+                         ids=["replicated_genomes", "entry_owner_sw"])
+def test_mesh_phase_a_matches_cpu(cuda_device, gshard):
+    """The sharded phase A of a (2, 2) mesh on the card (every cell on
+    the visible cards, cycled) equals the same mesh on the CPU, column
+    by column, with entry-owner SW routing under genome sharding."""
+    rng = np.random.default_rng(11)
+    genomes = [B4[rng.integers(0, 4, 4000)] for _ in range(5)]
+    gindex = GenbankIndex([GenbankEntry(bases=g.tobytes().decode(),
+                                        taxonomy_id=10 + i, locus_tag=f"G{i}")
+                           for i, g in enumerate(genomes)])
+    kidx = KmerIndex.build(gindex)
+    comp = np.zeros(256, np.uint8)
+    comp[B4] = np.frombuffer(b"TGCA", np.uint8)
+    unit = 96                                 # pairs per data row
+    bases = np.zeros((4 * unit, 160), np.uint8)
+    for d in range(2):
+        for i in range(unit):
+            g = genomes[int(rng.integers(0, 5))]
+            pos = int(rng.integers(0, len(g) - 450))
+            r1 = g[pos:pos + 150].copy()
+            r1[rng.random(150) < 0.02] = B4[rng.integers(0, 4)]
+            bases[2 * d * unit + i, :150] = r1
+            bases[(2 * d + 1) * unit + i, :150] = \
+                comp[g[pos + 250:pos + 400]][::-1]
+    lengths = np.full(4 * unit, 150, np.int32)
+    before = sw_cuda.LAUNCHES
+    got = _mesh_phase_a("cuda", gshard, gindex, kidx, bases, lengths, unit)
+    assert sw_cuda.LAUNCHES > before
+    want = _mesh_phase_a("cpu", gshard, gindex, kidx, bases, lengths, unit)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert int(w.pairs.count) > unit // 2
+        for a, b_ in zip(_leaves(g), _leaves(w)):
+            assert torch.equal(a.cpu(), b_)
+
+
+@pytest.mark.cuda
+def test_pseudo_assembly_device_cuda_vs_cpu(cuda_device):
+    """The float32 pseudo-assembly on the card against the CPU (which
+    equals the reference package exactly): every column but the
+    rescored score is equal; scores may differ only where a chain's
+    float32 sums were added in another order by CUDA's atomics, so the
+    differing rows are counted and bounded, and each differs by a few
+    float32 roundings of its value."""
+    rng = np.random.default_rng(9)
+    p = 200_000
+    entry = rng.integers(0, 64, p).astype(np.int32)
+    start = rng.integers(0, 200_000, p).astype(np.int32)
+    span = rng.integers(60, 160, p).astype(np.int32)
+    span[rng.random(p) < 0.01] = 0
+    cols = (rng.integers(0, p // 2, p).astype(np.int32),
+            rng.integers(-1, p, p).astype(np.int32),
+            rng.integers(-1, p, p).astype(np.int32),
+            rng.integers(0, 320, p).astype(np.int64), entry, start,
+            (start + span).astype(np.int32),
+            rng.integers(0, 600, p).astype(np.int64), rng.random(p) < 0.9)
+    cpu = screens_dev.pseudo_assembly_device(screens_dev.PairCols(
+        *(torch.as_tensor(c) for c in cols)))
+    gpu = screens_dev.pseudo_assembly_device(screens_dev.PairCols(
+        *(torch.as_tensor(c, device=cuda_device) for c in cols)))
+    for name in screens_dev.PairCols._fields:
+        if name != "combined_score":
+            assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+    a = gpu.combined_score.cpu().numpy() & 0xFFFFFFFF
+    b_ = cpu.combined_score.numpy() & 0xFFFFFFFF
+    changed = int((b_ != cols[3]).sum())
+    differ = a != b_
+    print(f"pseudo_assembly_device cuda vs cpu: {int(differ.sum())} of {p} "
+          f"rows differ ({changed} rows rescored on the CPU)")
+    assert changed > p // 2
+    assert differ.sum() <= p // 100
+    assert (np.abs(a[differ] - b_[differ]) <= 1e-5 * b_[differ] + 2).all()

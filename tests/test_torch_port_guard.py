@@ -1,6 +1,6 @@
 """Guards of the kslam_tpu_torch port: it imports where JAX is absent,
 its copies of the reference package's host modules have not drifted,
-its CLI refuses (never ignores) flags of paths not ported yet, and its
+its CLI fails on a malformed --mesh as the reference's does, and its
 native-library loader says why it did not build."""
 
 import ast
@@ -60,8 +60,7 @@ COPIES = [
     ("db/taxonomy", "db/taxonomy", (), (), None),
     ("db/kmer_index", "db/kmer_index", (),
      ("KmerIndex.prefix_table", "KmerIndex.bucket_table",
-      "KmerIndex._fingerprint", "KmerIndex.device_arrays",
-      "KmerIndex.shard_bounds", "KmerIndex.shard"), None),
+      "KmerIndex._fingerprint", "KmerIndex.device_arrays"), None),
     ("io/fastq", "io/fastq", (), (), None),
     ("io/native", "io/native",
      ("get_lib", "_BUILD_DIR", "BUILD_REPORT", "host_compilers",
@@ -87,6 +86,10 @@ COPIES = [
     ("pipeline/device_path", "pipeline/device_path", (), (),
      ("rescore_sorted_host",)),
     ("cli", "cli", (), (), ("build_database", "STREAM_BUILD_BP")),
+    ("parallel/dist", "parallel/dist", (), (),
+     ("shard_database", "shard_genomes")),
+    ("parallel/multihost", "parallel/multihost", (), (),
+     ("strided_chunks", "concat_sam_parts")),
 ]
 
 
@@ -133,22 +136,54 @@ def test_copied_host_code_has_not_drifted(port, ref, changed, dropped,
         assert mine[name] == theirs[name], f"{port}: {name} drifted"
 
 
-UNPORTED = [["--mesh", "2x4"], ["--shard-genomes"], ["--coordinator", "h:1"]]
+MALFORMED_MESH = ["2by4", "2x", "2x2x2"]
 
 
-@pytest.mark.parametrize("flags", UNPORTED, ids=[f[0] for f in UNPORTED])
-def test_cli_refuses_unported_flags(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--db", str(tmp_path), "--device", "cpu", *flags,
-                  str(tmp_path / "r1.fq")])
+@pytest.fixture(scope="module")
+def tiny_db(tmp_path_factory):
+    """A one-genome FASTA DB with a taxonomy and one read, built by the
+    port's CLI."""
+    root = tmp_path_factory.mktemp("guard_db")
+    (root / "db.fa").write_text(">G0\n" + "ACGTTGCA" * 40 + "\n")
+    (root / "names.dmp").write_text("1\t|\troot\t|\t\t|\tscientific name\t|\n")
+    (root / "nodes.dmp").write_text("1\t|\t1\t|\tno rank\t|\n")
+    db = root / "DB"
+    assert cli.main(["--parse-fasta", "--output-file", str(db),
+                     str(root / "db.fa")]) == 0
+    assert cli.main(["--parse-taxonomy", str(root / "names.dmp"),
+                     str(root / "nodes.dmp"), "--output-file",
+                     str(db / "taxDB")]) == 0
+    (root / "r1.fq").write_text("@q\n" + "ACGTTGCA" * 12 + "\n+\n"
+                                + "I" * 96 + "\n")
+    return root, db
 
 
-def test_cli_cuda_without_card_raises(tmp_path):
+@pytest.mark.parametrize("mesh", MALFORMED_MESH)
+def test_cli_malformed_mesh_fails_as_reference(tiny_db, mesh):
+    """A malformed --mesh raises the reference CLI's error (the same
+    parse of the same string) after the DB has loaded."""
+    from kslam_tpu import cli as jcli
+    root, db = tiny_db
+    errors = []
+    for main, extra in ((cli.main, ["--device", "cpu"]), (jcli.main, [])):
+        with pytest.raises(ValueError) as err:
+            main(["--db", str(db), "--output-file", str(root / "o"),
+                  "--mesh", mesh, *extra, str(root / "r1.fq")])
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+
+
+@pytest.mark.parametrize("flags", [[], ["--mesh", "2x2"],
+                                   ["--coordinator", "localhost:1"]],
+                         ids=["one_device", "mesh", "coordinator"])
+def test_cli_cuda_without_card_raises(tmp_path, flags):
+    """--device cuda (the default) never falls back to the CPU, on one
+    device, on a mesh or over processes."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--db", str(tmp_path), "--output-file",
-                  str(tmp_path / "o"), str(tmp_path / "r1.fq")])
+                  str(tmp_path / "o"), *flags, str(tmp_path / "r1.fq")])
 
 
 def test_native_loader_reports_why_it_did_not_build(tmp_path,
