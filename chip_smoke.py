@@ -8,20 +8,35 @@ Phases (each prints its own line; any failure exits non-zero):
   2. build: the SW kernel (nvcc, kslam_tpu_torch/csrc) and the native
      host library (make -C csrc, the first of $CXX, g++, c++ that links
      OpenMP), built in parallel; the library must load.
-  3. kernel vs plain: the SW kernel against its plain torch twin on the
-     card at the main path's shapes (B = 32768, Lq = 160, Lr = 192):
-     random codes with 5% N, planted near-identical pairs, all-N rows,
-     n_valid of 0, 1, B - 1000 and one off the block size, three scoring
-     parameter sets, and once through align_overlaps_batch_chunked (both
-     passes); then odd shapes at a batch off the block size ((Lq, Lr) =
-     (1, 1), (7, 5), (20, 192), (150, 192), (161, 192), and (1024, 1024)
-     with match 1).  Then the sw_align_batch composition (two kernel
-     passes) against the same composition over the twin at the flat
-     window's shapes (B = 32768, Lq = Lr = 160): three parameter sets,
-     planted pairs, all-N rows.  All outputs must be exactly equal; both
-     sides are timed with CUDA events, and each time is printed with its
-     cells, GCUPS and share of its bound: 8.5 int32 instructions per cell
-     over the SMs' dispatch rate (SMs x 128 lanes x clocks.max.sm).
+  3. kernels vs plain: the forward kernel (sw_forward) against its
+     plain torch twin on the card at the main path's shapes (B = 32768,
+     Lq = 160, Lr = 192): random codes with 5% N, planted near-identical
+     pairs, all-N rows, n_valid of 0, 1, B - 1000 and one off the block
+     size, three scoring parameter sets; odd shapes at a batch off the
+     block size ((Lq, Lr) = (1, 1), (7, 5), (20, 192), (150, 192),
+     (161, 192), and (1024, 1024) with match 1); once through
+     align_overlaps_batch_chunked on random candidates (the fused
+     kernel; the draws keep phases 4-8's data).  Then the fused forward
+     + reverse kernel (sw_align) against its plain version (the
+     composition over the twin): the flat window's shapes (B = 32768,
+     Lq = Lr = 160; planted pairs, every 7th query all N, three
+     parameter sets; random 5% N; leading, trailing and middle N runs
+     with n_valid of 0, 1, B - 1 and one off the block size), odd shapes,
+     the device pipeline's chunked windows (Lq = 160, Lr = 192) of
+     planted candidates on a uniform genome and of candidates on
+     realistic genomes (kslam_tpu_torch.eval.realistic: repeat copies
+     and low-complexity tracts), and once through
+     align_overlaps_batch_chunked.  All outputs must be exactly equal.
+     Timed with CUDA events: the forward kernel and its twin; at the flat
+     and the chunked shapes the fused kernel against the two-launch
+     composition in turns (old, new, new, old) and the plain version.
+     Each time is printed with its share of the bound of the cells these
+     inputs need (forward: the query's rows up to its last base x the
+     ref's columns from its first to its last base; reverse: rows up to
+     query_end x columns from the first base to ref_end): 8.5 int32
+     instructions per cell over the SMs' dispatch rate (SMs x 128 lanes
+     x clocks.max.sm); the cells the fused kernel computes and the
+     rectangle's are printed beside them.
   4. cuda vs cpu: a small FASTA DB, taxonomy and paired FASTQ made from
      --seed, run by the port's CLI on cuda and on cpu: classification;
      --sam-file on paired reads; --just-align --sam-file on single-end
@@ -35,20 +50,23 @@ Phases (each prints its own line; any failure exits non-zero):
      bench (16 genomes x 100 Mbp, ~1e8 stride-16 index k-mers) and
      262,144 planted 150 bp reads (131,072 pairs, 1% mutations) through
      the CLI on cuda; >= 99% of the pairs must get their genome's taxid.
-     Prints the kernel's launches and DP cells on this path and the
-     cells per second over the phase_a_sw stage.
+     Every SW launch must be a fused sw_align launch (4 at the default
+     size, one per batch of 32,768 candidates); prints the launches and
+     rectangle cells on this path and the cells per second over the
+     phase_a_sw stage.
   6. real-size SAM: phase 5's DB and reads with --sam-file on cuda;
      >= 99% of the planted pairs must have their R1 primary line on the
      planted genome within 5 of the planted position.
   7. host-object path: --device-pipeline off on phase 5's DB with the
      first --host-pairs pairs (its pairing is Python); >= 99% of the
-     pairs classified, with kernel launches through sw_align_batch.
+     pairs classified, every SW launch a fused sw_align launch.
   8. real-size mesh: phase 5's DB and reads with --mesh 2x2
      --shard-genomes on cuda (every cell on the visible cards, cycled);
      the XML, _PerRead and _abbreviated files must be byte-identical to
      phase 5's.  Prints the stage seconds (shard_placement: sharding and
      placing the DB), the peak memory of every device, the mesh cells on
-     each device, and the kernel's launches and DP cells on this path.
+     each device, and the kernel's launches and rectangle cells on this
+     path; every launch fused, 4 at the default size.
 Phase 4 also runs, on cuda, --mesh 2x2 (classification), --mesh 1x4
 --shard-genomes --sam-file, and two processes of --coordinator
 localhost:PORT --num-processes 2 sharing the card; each must launch the
@@ -74,6 +92,8 @@ import time
 
 import numpy as np
 import torch
+
+from kslam_tpu_torch.eval.sw_windows import column_extents, n_windows
 
 
 def log(msg: str) -> None:
@@ -134,19 +154,72 @@ def sw_bound(cells: int, nbytes: int):
     return bytes_ms, "bytes"
 
 
+def needed_cells(q, r, n_valid=None, al=None):
+    """The cells these inputs need (data-dependent work; numpy inputs):
+    the forward pass (last non-N query row + 1) x (c1 - c0 + 1) per live
+    row, 0 for an all-N query or ref (N rows past the query's last base
+    and N columns outside c0..c1 can at most tie a cell the tie-break
+    prefers); with al (the alignments), the reverse pass (query_end + 1)
+    x (ref_end - c0 + 1) per row with score > 0.  Returns (forward,
+    reverse)."""
+    b = q.shape[0]
+    c0, c1 = column_extents(r)
+    _, q1 = column_extents(q)
+    live = np.arange(b) < (b if n_valid is None else int(n_valid))
+    fwd = int(((q1 + 1) * np.maximum(c1 - c0 + 1, 0) * live).sum())
+    if al is None:
+        return fwd, 0
+    rev = (al.query_end.astype(np.int64) + 1) * \
+        (al.ref_end.astype(np.int64) - c0 + 1)
+    return fwd, int(np.where(al.score > 0, rev, 0).sum())
+
+
+def computed_cells(r, al, group: int, rows: int, n_valid=None):
+    """The cells the fused kernel computes (numpy inputs): G * R rows x
+    (c1 - c0 + 1) columns forward per live row, and ceil((query_end + 1)
+    / R) * R rows x (ref_end - c0 + 1) columns reverse per row with
+    score > 0.  Returns (forward, reverse)."""
+    b = r.shape[0]
+    c0, c1 = column_extents(r)
+    live = np.arange(b) < (b if n_valid is None else int(n_valid))
+    fwd = int((group * rows * np.maximum(c1 - c0 + 1, 0) * live).sum())
+    lanes = (al.query_end.astype(np.int64) + rows) // rows
+    rev = lanes * rows * (al.ref_end.astype(np.int64) - c0 + 1)
+    return fwd, int(np.where(al.score > 0, rev, 0).sum())
+
+
+def trip_columns(r, al):
+    """Columns each row's group of the fused kernel sweeps (numpy): c1 -
+    c0 + 1 forward, ref_end - c0 + 1 reverse where the score is > 0."""
+    c0, c1 = column_extents(r)
+    rev = np.where(al.score > 0, al.ref_end.astype(np.int64) - c0 + 1, 0)
+    return np.maximum(c1 - c0 + 1, 0) + rev
+
+
 def timing_line(name: str, ms: float, plain_ms: float, cells: int,
                 nbytes: int):
     bound_ms, bound_by = sw_bound(cells, nbytes)
-    log(f"  timing {name}: kernel {ms:.3f} ms, {cells} cells "
+    log(f"  timing {name}: kernel {ms:.3f} ms, {cells} cells needed "
         f"({cells / ms / 1e6:.1f} GCUPS); bound {bound_ms:.3f} ms "
         f"({bound_by}), {bound_ms / ms:.1%} of it; plain {plain_ms:.3f} ms")
     return bound_ms, bound_by
 
 
-def sass_step_loop(lib_path: str, rows: int):
-    """The step loop of sw_group_kernel<rows, int8 scores> in the built
-    library's SASS (cuobjdump): the shortest backward-branch loop that
-    holds PRMT, as (instruction count, opcode counts); None without
+def time_in_turns(old, new, iters: int):
+    """old, new, new, old: the mean ms of each over its two turns, and
+    the four readings."""
+    o1 = cuda_ms(old, iters)
+    n1 = cuda_ms(new, iters)
+    n2 = cuda_ms(new, iters)
+    o2 = cuda_ms(old, iters)
+    return (o1 + o2) / 2, (n1 + n2) / 2, [o1, n1, n2, o2]
+
+
+def sass_step_loops(lib_path: str, rows: int, align: bool):
+    """The step loops of sw_group_kernel<rows, int8 scores, align> in the
+    built library's SASS (cuobjdump): the backward-branch loops that hold
+    PRMT (the forward kernel has one, the fused kernel one per pass), as
+    [(instruction count, opcode counts)], shortest first; None without
     cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
@@ -154,8 +227,9 @@ def sass_step_loop(lib_path: str, rows: int):
         return None
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+    name = f"sw_group_kernelILi{rows}ELb1ELb{int(align)}E"
     for func in sass.split("Function : ")[1:]:
-        if f"sw_group_kernelILi{rows}ELb1E" not in func.split("\n", 1)[0]:
+        if name not in func.split("\n", 1)[0]:
             continue
         ins = [(int(a, 16), op.strip()) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
@@ -166,10 +240,11 @@ def sass_step_loop(lib_path: str, rows: int):
                 body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
                 if any("PRMT" in o for o in body):
                     loops.append(body)
-        if loops:
-            body = min(loops, key=len)
-            return len(body), collections.Counter(
-                re.sub(r"^@!?U?P\w+\s+", "", o).split()[0] for o in body)
+        # the shortest: the step loop (one per pass of the fused kernel)
+        loops.sort(key=len)
+        return [(len(body), collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", o).split()[0] for o in body))
+            for body in loops[:2 if align else 1]]
     return None
 
 
@@ -178,11 +253,12 @@ def max_abs_err(a, b) -> int:
                if len(x) else 0 for x, y in zip(a, b))
 
 
-def phase_kernel(rng, dev):
-    """Kernel vs plain twin at the main path's shapes and odd shapes;
+def phase_kernel(rng, dev, b: int = 32768):
+    """The forward kernel vs its plain twin at the main path's shapes and
+    odd shapes, and once the window builder through the fused kernel;
     returns (max_abs_err, kernel ms, plain ms, (bound ms, bound_by))."""
     from kslam_tpu_torch.ops import sw, sw_cuda
-    b, lq, lr = 32768, 160, 192
+    lq, lr = 160, 192
     worst = 0
 
     def check(name, q, r, params, n_valid=None):
@@ -195,7 +271,7 @@ def phase_kernel(rng, dev):
         torch.cuda.synchronize()
         err = max_abs_err(got, ref)
         worst = max(worst, err)
-        log(f"  {name} params={params}: max_abs_err={err} "
+        log(f"  sw_forward {name} params={params}: max_abs_err={err} "
             f"mean score={float(got.score.float().mean()):.2f}")
         if err != 0:
             raise AssertionError(f"kernel != plain on {name} {params}")
@@ -224,7 +300,8 @@ def phase_kernel(rng, dev):
     for nv in (0, 1, b - 1000, off_block):
         check(f"n_valid={nv}", q, r, (2, 3, 5, 2), n_valid=nv)
 
-    # once through the window builder (both passes), on a small genome
+    # once through the window builder (the fused kernel) on random
+    # candidates of a small genome, against it over the plain version
     g = rng.integers(0, 4, 200_000).astype(np.uint8)
     offsets = np.array([0, 120_000, 200_000], np.int64)
     chunks = sw.genome_chunks_from_scodes(g)
@@ -239,19 +316,19 @@ def phase_kernel(rng, dev):
              chunks, offsets)]
     got = sw.align_overlaps_batch_chunked(*args, 2, 3, 5, 2, window_len=lq)
     launches = sw_cuda.LAUNCHES
-    sw_fwd = sw_cuda.sw_forward_batch
+    kernel = sw_cuda.sw_align_batch
     try:
-        sw_cuda.sw_forward_batch = sw_cuda.sw_forward_batch_plain
+        sw_cuda.sw_align_batch = sw_cuda.sw_align_batch_plain
         ref = sw.align_overlaps_batch_chunked(*args, 2, 3, 5, 2,
                                               window_len=lq)
     finally:
-        sw_cuda.sw_forward_batch = sw_fwd
+        sw_cuda.sw_align_batch = kernel
     torch.cuda.synchronize()
     err = max_abs_err(got, ref)
     worst = max(worst, err)
-    log(f"  align_overlaps_batch_chunked (forward + reverse pass): "
-        f"max_abs_err={err}, {sw_cuda.LAUNCHES - launches} launches on the "
-        f"plain run")
+    log(f"  align_overlaps_batch_chunked on random candidates: "
+        f"max_abs_err={err}, {sw_cuda.LAUNCHES - launches} launches on "
+        f"the plain run")
     if err != 0 or sw_cuda.LAUNCHES != launches:
         raise AssertionError("chunked alignment: kernel != plain")
 
@@ -272,33 +349,134 @@ def phase_kernel(rng, dev):
         lambda: sw_cuda.sw_forward_batch_plain(qd, rd, 2, 3, 5, 2), 3)
     nbytes = (qd.numel() * qd.element_size() + rd.numel() * rd.element_size()
               + 12 * b)
+    cells, _ = needed_cells(qd.cpu().numpy(), rd.cpu().numpy())
+    log(f"  sw_forward cells: {cells} needed of {b * lq * lr} in the "
+        f"rectangle (the forward kernel computes the rectangle)")
     bound = timing_line(
         f"sw_forward B={b} Lq={lq} Lr={lr} ({cfg.group} threads x "
-        f"{cfg.rows} rows per alignment)", ms, plain_ms, b * lq * lr, nbytes)
+        f"{cfg.rows} rows per alignment)", ms, plain_ms, cells, nbytes)
     return worst, ms, plain_ms, bound
 
 
-def phase_align(rng, dev):
-    """sw_align_batch (two kernel passes) vs the same composition over
-    the plain twin at the flat window's shapes; returns (max_abs_err,
-    kernel ms, plain ms, (bound ms, bound_by))."""
-    from kslam_tpu_torch.ops import sw_cuda
-    b, l = 32768, 160
+def copied_reads(rng, genome, starts, rc, l: int):
+    """Reads of l codes copied from genome at starts, reverse-complemented
+    where rc, 1% mutated."""
+    reads = genome[starts[:, None] + np.arange(l)[None, :]]
+    comp = np.where(reads < 4, reads ^ 2, reads)[:, ::-1]
+    reads = np.where(rc[:, None], comp, reads).astype(np.uint8)
+    mut = rng.random(reads.shape) < 0.01
+    reads[mut] = rng.integers(0, 4, int(mut.sum()))
+    return reads
+
+
+def planted_candidates(rng, genome, offsets, b: int, l: int):
+    """Candidates as the device pipeline makes them: read t copied (1%
+    mutated) from its entry at rel_pos, reverse-complemented on RC rows,
+    so that the window at rel_pos holds it; lengths 100..l."""
+    entry = rng.integers(0, len(offsets) - 1, b).astype(np.int32)
+    e_len = np.diff(offsets)[entry]
+    rel = (rng.random(b) * (e_len - l)).astype(np.int64)
+    rc = rng.random(b) < 0.5
+    reads = copied_reads(rng, genome, offsets[entry] + rel, rc, l)
+    lens = rng.integers(100, l + 1, b).astype(np.int32)
+    return (np.arange(b, dtype=np.int32), entry, rel.astype(np.int32), rc,
+            np.ones(b, bool), reads, lens)
+
+
+def realistic_candidates(rng, b: int, l: int):
+    """Candidates over make_realistic_entries genomes (4 x 400 kb plus
+    plasmids): a quarter at their read's own position, a quarter against
+    another copy of a repeat (rRNA operon, IS element, plasmid: a 32-mer
+    seen twice, at the read's offset from it), a quarter in and around
+    low-complexity tracts (homopolymers, microsatellites) against
+    another such tract, the rest random.  Reads are copied from the
+    genomes (1% mutated); their equal-score ends stress the tie-break.
+    Returns (candidate columns, genome codes, entry offsets)."""
+    from kslam_tpu_torch.eval import realistic
+    from kslam_tpu_torch.ops import encode
+    entries = realistic.make_realistic_entries(
+        n_genomes=4, bp_each=400_000, seed=int(rng.integers(1 << 30)))
+    genome = encode.sw_codes_np(np.concatenate([e.seq for e in entries]))
+    offsets = np.zeros(len(entries) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(e.seq) for e in entries])
+    n = len(genome)
+    # repeats: 32-mers at every 8th position seen more than once
+    pos = np.arange(0, n - 32, 8)
+    packed = np.zeros(len(pos), np.uint64)
+    for k in range(32):
+        packed = (packed << np.uint64(2)) | (genome[pos + k] & 3).astype(
+            np.uint64)
+    order = np.argsort(packed, kind="stable")
+    same = packed[order][1:] == packed[order][:-1]
+    pairs = np.stack([pos[order][1:][same], pos[order][:-1][same]], 1)
+    # low-complexity: 60 bases equal to the bases 1..5 before them
+    tract = np.zeros(n, bool)
+    for k in range(1, 6):
+        eq = np.concatenate([np.zeros(k, np.int64),
+                             (genome[k:] == genome[:-k]).astype(np.int64)])
+        cs = np.cumsum(eq)
+        tract[60:] |= cs[60:] - cs[:-60] == 60
+    tracts = np.flatnonzero(tract)
+    quarter = b // 4
+    src = rng.integers(0, n - l, b)                # read start in genome
+    dst = src.copy()                               # window start
+    if len(pairs):
+        pk = pairs[rng.integers(0, len(pairs), quarter)]
+        shift = rng.integers(0, l - 32, quarter)
+        src[quarter:2 * quarter] = pk[:, 0] - shift
+        dst[quarter:2 * quarter] = pk[:, 1] - shift
+    if len(tracts):
+        src[2 * quarter:3 * quarter] = tracts[rng.integers(
+            0, len(tracts), quarter)] - rng.integers(0, l, quarter)
+        dst[2 * quarter:3 * quarter] = tracts[rng.integers(
+            0, len(tracts), quarter)] - rng.integers(0, l, quarter)
+    dst[3 * quarter:] = rng.integers(0, n - l, b - 3 * quarter)
+    src = np.clip(src, 0, n - l)
+    dst = np.clip(dst, 0, n - 1)
+    entry = (np.searchsorted(offsets, dst, side="right") - 1).astype(np.int32)
+    rel = (dst - offsets[entry] + rng.integers(-3, 4, b)).astype(np.int32)
+    rc = rng.random(b) < 0.5
+    reads = copied_reads(rng, genome, src, rc, l)
+    lens = rng.integers(100, l + 1, b).astype(np.int32)
+    log(f"  realistic genomes: {len(entries)} entries, {n} bases, "
+        f"{len(pairs)} repeated 32-mers, {len(tracts)} low-complexity "
+        f"positions")
+    return (np.arange(b, dtype=np.int32), entry, rel, rc, np.ones(b, bool),
+            reads, lens), genome, offsets
+
+
+def phase_align(rng, dev, b: int = 32768):
+    """The fused sw_align kernel vs its plain version (the composition
+    over the forward twin) at the flat window's shapes, odd shapes, the
+    chunked windows of the device pipeline (uniform and realistic
+    genomes) and once through align_overlaps_batch_chunked; then the
+    fused kernel, the two-launch composition and the plain version timed
+    at the flat and the chunked shapes.  Returns a dict of results."""
+    from kslam_tpu_torch.ops import sw, sw_cuda
+    l = 160
     worst = 0
 
-    def check(name, q, r, params):
+    def check(name, q, r, params, n_valid=None):
         nonlocal worst
         qd, rd = torch.as_tensor(q, device=dev), torch.as_tensor(r, device=dev)
-        got = sw_cuda.sw_align_batch(qd, rd, *params)
-        ref = sw_cuda.sw_align_batch_plain(qd, rd, *params)
+        nv = None if n_valid is None else torch.tensor(n_valid, device=dev,
+                                                       dtype=torch.int32)
+        before = sw_cuda.ALIGN_LAUNCHES
+        got = sw_cuda.sw_align_batch(qd, rd, *params, n_valid=nv)
+        launched = sw_cuda.ALIGN_LAUNCHES - before
+        ref = sw_cuda.sw_align_batch_plain(qd, rd, *params, n_valid=nv)
         torch.cuda.synchronize()
         err = max_abs_err(got, ref)
         worst = max(worst, err)
-        log(f"  sw_align_batch {name} params={params}: max_abs_err={err} "
-            f"mean score={float(got.score.float().mean()):.2f}")
-        if err != 0:
-            raise AssertionError(f"sw_align_batch != plain on {name}")
+        pos = got.score > 0
+        log(f"  sw_align {name} params={params}: max_abs_err={err}, "
+            f"{launched} fused launch, {int(pos.sum())}/{len(pos)} rows "
+            f"score > 0, mean score {float(got.score.float().mean()):.2f}")
+        if err != 0 or launched != 1:
+            raise AssertionError(f"sw_align != plain on {name} {params}")
+        return got
 
+    # the flat window's shapes: planted pairs, every 7th query all N
     q = rng.integers(0, 4, (b, l)).astype(np.int32)
     planted = q.copy()
     mut = rng.random((b, l)) < 0.02
@@ -310,20 +488,149 @@ def phase_align(rng, dev):
                  rng.integers(0, 4, (b, l))).astype(np.int32)
     q[::7] = 4                                       # all-N rows
     for params in ((2, 3, 5, 2), (1, 4, 6, 1), (3, 2, 2, 2)):
-        check("planted pairs, all-N rows", q, r, params)
+        check("flat planted pairs, all-N rows", q, r, params)
     noise = rng.integers(0, 4, (b, l)).astype(np.int32)
     noise[rng.random((b, l)) < 0.05] = 4
-    check("random 5% N", noise, r, (2, 3, 5, 2))
-    qd, rd = torch.as_tensor(q, device=dev), torch.as_tensor(r, device=dev)
-    ms = cuda_ms(lambda: sw_cuda.sw_align_batch(qd, rd, 2, 3, 5, 2), 20)
-    plain_ms = cuda_ms(
-        lambda: sw_cuda.sw_align_batch_plain(qd, rd, 2, 3, 5, 2), 3)
-    # two passes; the codes in once, five int32 outputs per row
-    nbytes = 2 * qd.numel() * qd.element_size() + 20 * b
-    bound = timing_line(
-        f"sw_align_batch B={b} Lq=Lr={l} (two passes)", ms, plain_ms,
-        2 * b * l * l, nbytes)
-    return worst, ms, plain_ms, bound
+    check("flat random 5% N", noise, r, (2, 3, 5, 2))
+    qn, rn = n_windows(rng, q.copy(), r.copy())
+    cfg = sw_cuda.launch_config(b, l, l, align=True)
+    off_block = 37 * (cfg.threads // cfg.group) + 5
+    for nv in (0, 1, b - 1, off_block):
+        check(f"flat N windows, n_valid={nv}", qn, rn, (2, 3, 5, 2),
+              n_valid=nv)
+    ob = min(4099, b + 3)
+    for olq, olr in ((1, 1), (7, 5), (20, 192), (150, 192), (161, 192)):
+        for params in ((2, 3, 5, 2), (1, 4, 6, 1), (3, 2, 2, 2)):
+            oq = rng.integers(0, 4, (ob, olq)).astype(np.int32)
+            orr = rng.integers(0, 4, (ob, olr)).astype(np.int32)
+            n = min(olq, olr)
+            orr[:, :n] = np.where(rng.random((ob, n)) < 0.05, 4, oq[:, :n])
+            check(f"Lq={olq} Lr={olr} B={ob}", *n_windows(rng, oq, orr),
+                  params)
+    oq = rng.integers(0, 4, (ob, 1024)).astype(np.int32)
+    check(f"Lq=1024 Lr=1024 B={ob}",
+          *n_windows(rng, oq, np.where(rng.random(oq.shape) < 0.1, 4, oq)
+                     .astype(np.int32)), (1, 4, 6, 1))
+
+    # the chunked windows of the device pipeline at its shapes
+    genome = rng.integers(0, 4, 4_000_000).astype(np.uint8)
+    offsets = np.array([0, 2_500_000, 4_000_000], np.int64)
+    chunks = sw.genome_chunks_from_scodes(genome)
+
+    def windows(cand, chunks_np, offsets_np):
+        t = [torch.as_tensor(x, device=dev) for x in cand]
+        return t, sw.chunked_windows(
+            *t[:4], *t[5:], torch.as_tensor(chunks_np, device=dev),
+            torch.as_tensor(offsets_np, device=dev), window_len=l)
+
+    cand = planted_candidates(rng, genome, offsets, b, l)
+    targs, win = windows(cand, chunks, offsets)
+    wq, wr = win.q, win.r
+    for params in ((2, 3, 5, 2), (1, 4, 6, 1), (3, 2, 2, 2)):
+        check(f"chunked Lq={l} Lr={wr.shape[1]}", wq, wr, params)
+    for nv in (0, 1, b - 1000, off_block):
+        check(f"chunked n_valid={nv}", wq, wr, (2, 3, 5, 2), n_valid=nv)
+    # once through the whole builder, against it over the plain version
+    tchunks = torch.as_tensor(chunks, device=dev)
+    toffsets = torch.as_tensor(offsets, device=dev)
+    before = sw_cuda.ALIGN_LAUNCHES
+    got = sw.align_overlaps_batch_chunked(
+        *targs, tchunks, toffsets, 2, 3, 5, 2, window_len=l,
+        n_valid=torch.tensor(b - 1000, device=dev))
+    fused = sw_cuda.ALIGN_LAUNCHES - before
+    kernel = sw_cuda.sw_align_batch
+    try:
+        sw_cuda.sw_align_batch = sw_cuda.sw_align_batch_plain
+        ref = sw.align_overlaps_batch_chunked(
+            *targs, tchunks, toffsets, 2, 3, 5, 2, window_len=l,
+            n_valid=torch.tensor(b - 1000, device=dev))
+    finally:
+        sw_cuda.sw_align_batch = kernel
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref)
+    worst = max(worst, err)
+    log(f"  align_overlaps_batch_chunked on planted candidates: "
+        f"max_abs_err={err}, {fused} fused launch (the plain run: "
+        f"{sw_cuda.ALIGN_LAUNCHES - before - fused})")
+    if err != 0 or fused != 1 or sw_cuda.ALIGN_LAUNCHES != before + 1:
+        raise AssertionError("chunked alignment: kernel != plain")
+
+    # realistic genomes: repeats and low-complexity tracts
+    rcand, rgenome, roffsets = realistic_candidates(rng, b, l)
+    rchunks = sw.genome_chunks_from_scodes(rgenome)
+    _, rwin = windows(rcand, rchunks, roffsets)
+    for params in ((2, 3, 5, 2), (1, 4, 6, 1), (3, 2, 2, 2)):
+        got = check("chunked realistic windows", rwin.q, rwin.r, params)
+    ties = int((got.score[b // 2:3 * b // 4] > 0).sum())
+    log(f"  realistic: {ties} low-complexity rows with score > 0")
+
+    # timing: the fused kernel vs the two-launch composition (old, new,
+    # new, old) and the plain version, with the bound of the cells needed
+    results = {"max_abs_err": worst}
+    for shape, (tq, tr) in (("flat", (torch.as_tensor(q, device=dev),
+                                      torch.as_tensor(r, device=dev))),
+                            ("chunked", (wq, wr))):
+        lq, lr = tq.shape[1], tr.shape[1]
+        comp_ms, ms, turns = time_in_turns(
+            lambda: sw_cuda._align_composition(
+                sw_cuda.sw_forward_batch, tq, tr, 2, 3, 5, 2),
+            lambda: sw_cuda.sw_align_batch(tq, tr, 2, 3, 5, 2), 20)
+        plain_ms = cuda_ms(
+            lambda: sw_cuda.sw_align_batch_plain(tq, tr, 2, 3, 5, 2), 3)
+        al = sw_cuda.sw_align_batch(tq, tr, 2, 3, 5, 2)
+        qn, rn = tq.cpu().numpy(), tr.cpu().numpy()
+        aln = sw.SWAlignments(*(x.cpu().numpy() for x in al))
+        cfg = sw_cuda.launch_config(b, lq, lr, align=True)
+        fwd, rev = needed_cells(qn, rn, al=aln)
+        cfwd, crev = computed_cells(rn, aln, cfg.group, cfg.rows)
+        rect = 2 * b * lq * lr
+        # the codes in once, five int32 outputs per row
+        nbytes = (tq.numel() + tr.numel()) * 4 + 20 * b
+        bound_ms, bound_by = sw_bound(fwd + rev, nbytes)
+        log(f"  timing sw_align {shape} B={b} Lq={lq} Lr={lr}: fused "
+            f"{ms:.4f} ms, two-launch composition {comp_ms:.4f} ms "
+            f"(turns old/new/new/old {[round(x, 4) for x in turns]}), "
+            f"plain {plain_ms:.3f} ms; cells needed {fwd + rev} (forward "
+            f"{fwd}, reverse {rev}), computed by the fused kernel "
+            f"{cfwd + crev} (forward {cfwd}, reverse {crev}), rectangle "
+            f"{rect}: needed {(fwd + rev) / rect:.2%} and computed "
+            f"{(cfwd + crev) / rect:.2%} of it; bound {bound_ms:.4f} ms "
+            f"({bound_by}): fused {bound_ms / ms:.2%}, composition "
+            f"{bound_ms / comp_ms:.2%} of it; {(fwd + rev) / ms / 1e6:.1f} "
+            f"GCUPS needed")
+        # warp divergence: the groups of a warp run their own trip counts
+        # and the warp waits for its slowest.  The same rows, sorted into
+        # warps of similar trip count, then those warps shuffled (so the
+        # blocks' loads stay spread as in the callers' order), timed in
+        # turns against the callers' order, show what that costs
+        per_warp = 32 // cfg.group
+        order = torch.as_tensor(
+            np.argsort(trip_columns(rn, aln), kind="stable"), device=dev)
+        warps = order[:b - b % per_warp].view(-1, per_warp)
+        shuffle = torch.randperm(
+            len(warps), generator=torch.Generator().manual_seed(0)).to(dev)
+        order = torch.cat([warps[shuffle].flatten(),
+                           order[b - b % per_warp:]])
+        sq, sr = tq[order].contiguous(), tr[order].contiguous()
+        order_ms, even_ms, even_turns = time_in_turns(
+            lambda: sw_cuda.sw_align_batch(tq, tr, 2, 3, 5, 2),
+            lambda: sw_cuda.sw_align_batch(sq, sr, 2, 3, 5, 2), 20)
+        log(f"  warp divergence at {shape}: fused {order_ms:.4f} ms in the "
+            f"callers' order, {even_ms:.4f} ms with warps of similar trip "
+            f"count (turns {[round(x, 4) for x in even_turns]}): "
+            f"{(order_ms - even_ms) / order_ms:.1%} of the time")
+        results[shape] = {
+            "B": b, "Lq": lq, "Lr": lr, "ms": ms, "composition_ms": comp_ms,
+            "even_warps_ms": even_ms, "callers_order_ms": order_ms,
+            "turns_old_new_new_old": turns, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+            "composition_bound_share": bound_ms / comp_ms,
+            "cells_needed": fwd + rev, "cells_forward": fwd,
+            "cells_reverse": rev, "cells_computed": cfwd + crev,
+            "cells_computed_forward": cfwd, "cells_computed_reverse": crev,
+            "cells_rectangle": rect}
+    return results
 
 
 def write_taxonomy(path: str, taxids) -> None:
@@ -445,15 +752,17 @@ def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
     for device in ("cpu", "cuda"):
         out = os.path.join(tmp, f"small_{name}_{device}")
         extra = list(flags) + (["--sam-file", out + ".sam"] if sam else [])
-        before = sw_cuda.LAUNCHES
+        before, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
         secs = run_cli(db, out, r1, r2, device, extra)
         launched = sw_cuda.LAUNCHES - before
+        fused = sw_cuda.ALIGN_LAUNCHES - fused
         outs[device] = read_outputs(out, sam)
         log(f"  {name} {device}: {secs:.2f} s, {launched} SW kernel "
             f"launches")
-        if (launched > 0) != (device == "cuda"):
-            raise AssertionError(f"{name}: {launched} SW launches on "
-                                 f"{device}")
+        if device == "cuda":
+            check_fused(f"{name} cuda", launched, fused)
+        elif launched:
+            raise AssertionError(f"{name}: {launched} SW launches on cpu")
     sizes = [len(x) for x in outs["cuda"]]
     same = outs["cpu"] == outs["cuda"]
     log(f"  {name}: outputs byte-identical between cuda and cpu: {same} "
@@ -467,28 +776,32 @@ def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
 def run_mesh_cuda(tmp: str, db: str, name: str, r1: str, r2, flags,
                   sam: bool, want) -> int:
     """One CLI run on cuda with mesh flags; its files must equal `want`
-    (the single-device runs' files).  Returns its kernel launches."""
+    (the single-device runs' files), every SW launch fused.  Returns its
+    fused sw_align launches."""
     from kslam_tpu_torch.ops import sw_cuda
     out = os.path.join(tmp, f"small_{name}_cuda")
     extra = list(flags) + (["--sam-file", out + ".sam"] if sam else [])
-    sw_cuda.LAUNCHES = 0
+    sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
     secs = run_cli(db, out, r1, r2, "cuda", extra)
-    launched = sw_cuda.LAUNCHES
+    launched, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
     same = read_outputs(out, sam) == want
     log(f"  {name} cuda: {secs:.2f} s, {launched} SW kernel launches; "
         f"outputs byte-identical to the single-device CPU run: {same}")
-    if not same or launched == 0:
-        raise AssertionError(f"{name}: outputs differ or no SW launch")
-    return launched
+    if not same:
+        raise AssertionError(f"{name}: outputs differ")
+    check_fused(name, launched, fused)
+    return fused
 
 
-# a port CLI process that reports its kernel launches on stdout
+# a port CLI process that reports its SW launches and fused sw_align
+# launches on stdout
 _CLI_PROCESS = (
     "import sys\n"
     "from kslam_tpu_torch import cli\n"
     "from kslam_tpu_torch.ops import sw_cuda\n"
     "rc = cli.main(sys.argv[1:])\n"
-    "print('sw_forward launches', sw_cuda.LAUNCHES, flush=True)\n"
+    "print('SW launches', sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES,\n"
+    "      flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -502,7 +815,7 @@ def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
                       name: str = "small_two_process_cuda",
                       visible=None) -> int:
     """--coordinator localhost:PORT --num-processes 2 on cuda; returns
-    the processes' kernel launches.  visible: each process's
+    the processes' fused sw_align launches (every SW launch fused).  visible: each process's
     CUDA_VISIBLE_DEVICES (None: both see every card).  The outputs must
     equal `want` ([SAM without @PG, XML, _PerRead, _abbreviated]), the
     SAM as one header and its sorted body lines."""
@@ -530,13 +843,14 @@ def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
                 p.kill()
                 p.communicate()
     secs = time.perf_counter() - t0
-    launches = []
+    launches, fused = [], []
     for pid, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
-        m = re.search(r"sw_forward launches (\d+)", stdout)
+        m = re.search(r"SW launches (\d+) (\d+)", stdout)
         if p.returncode != 0 or m is None:
             raise AssertionError(f"process {pid} exited {p.returncode}:\n"
                                  f"{stderr[-3000:]}")
         launches.append(int(m.group(1)))
+        fused.append(int(m.group(2)))
 
     def split_sam(text: bytes):
         lines = text.splitlines(keepends=True)
@@ -554,7 +868,9 @@ def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
     if not same or min(launches) == 0 or parts_left:
         raise AssertionError("the two-process run differs, left SAM parts "
                              "or launched no SW kernel in a process")
-    return sum(launches)
+    for pid in range(2):
+        check_fused(f"{name} process {pid}", launches[pid], fused[pid])
+    return sum(fused)
 
 
 class SimulatedCrash(Exception):
@@ -648,9 +964,21 @@ def phase_e2e_small(rng, tmp: str) -> None:
     return launches
 
 
-def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
-    """The real-size run; returns (the SW launch count of the main path,
-    the DB, reads and planted truth for phases 6 and 7)."""
+def check_fused(name: str, launches: int, fused: int, expect=None) -> None:
+    """Every SW launch of a path must be a fused sw_align launch, at
+    least one, and `expect` of them where given."""
+    log(f"  {name}: {fused} fused sw_align launches of {launches} SW "
+        f"launches" + ("" if expect is None else f" (expected {expect})"))
+    if fused == 0 or fused != launches or (expect is not None
+                                           and fused != expect):
+        raise AssertionError(f"{name}: {launches} SW launches, {fused} "
+                             f"fused")
+
+
+def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
+    """The real-size run; returns (its SW launches, fused launches and
+    rectangle cells, and the DB, reads and planted truth for phases 6-8).
+    """
     from kslam_tpu_torch.ops import sw_cuda
     from kslam_tpu_torch.utils import metrics
     n_genomes = 16
@@ -673,11 +1001,12 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
 
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
-    sw_cuda.LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
+    sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
     out = os.path.join(tmp, "real_out")
     wall = run_cli(db, out, os.path.join(tmp, "r1.fq"),
                    os.path.join(tmp, "r2.fq"), "cuda")
-    launches, cells = sw_cuda.LAUNCHES, sw_cuda.LAUNCH_CELLS
+    launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    cells = sw_cuda.LAUNCH_CELLS
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
     per_read = dict(line.split("\t") for line in
@@ -694,19 +1023,18 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int):
     log(f"  peak device memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated), SW launches {launches}")
     sw_s = stages.get("phase_a_sw", {}).get("seconds", 0.0)
-    log(f"  SW kernel on the main path: {launches} launches, {cells} DP "
-        f"cells; phase_a_sw {sw_s:.3f} s, "
-        f"{cells / sw_s / 1e9 if sw_s else 0.0:.1f} G cells/s over the "
-        f"stage (window building and the reverse pass's gathers included)")
+    log(f"  SW kernel on the main path: {launches} launches, {cells} "
+        f"rectangle cells; phase_a_sw {sw_s:.4f} s, "
+        f"{cells / sw_s / 1e9 if sw_s else 0.0:.1f} G rectangle cells/s "
+        f"over the stage (window building included)")
     log(f"  pairs classified to their genome's taxid: {hits}/{n_pairs} "
         f"({frac:.4%})")
     if frac < 0.99:
         raise AssertionError(f"only {frac:.4%} of planted pairs classified")
-    if launches == 0:
-        raise AssertionError("the main path launched no SW kernel")
-    return launches, cells, dict(db=db, r1=os.path.join(tmp, "r1.fq"),
-                          r2=os.path.join(tmp, "r2.fq"), g=g, at=at,
-                          taxids=taxids, out=out)
+    check_fused("the main path", launches, fused, expect)
+    return launches, fused, cells, dict(
+        db=db, r1=os.path.join(tmp, "r1.fq"), r2=os.path.join(tmp, "r2.fq"),
+        g=g, at=at, taxids=taxids, out=out)
 
 
 def phase_sam(ctx, tmp: str):
@@ -715,11 +1043,11 @@ def phase_sam(ctx, tmp: str):
     from kslam_tpu_torch.utils import metrics
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
-    sw_cuda.LAUNCHES = 0
+    sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
     out = os.path.join(tmp, "real_sam")
     wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
                    ["--sam-file", out + ".sam"])
-    launches = sw_cuda.LAUNCHES
+    launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
     first = {}            # read name -> (RNAME, POS) of its R1 primary line
@@ -752,8 +1080,7 @@ def phase_sam(ctx, tmp: str):
         f"planted position: {hits}/{len(g)} ({frac:.4%})")
     if frac < 0.99:
         raise AssertionError(f"only {frac:.4%} of SAM lines placed right")
-    if launches == 0:
-        raise AssertionError("the SAM path launched no SW kernel")
+    check_fused("the SAM path", launches, fused)
     return launches
 
 
@@ -787,15 +1114,14 @@ def phase_host_path(ctx, tmp: str, n_pairs: int):
         f"({frac:.4%})")
     if frac < 0.99:
         raise AssertionError(f"only {frac:.4%} of pairs classified")
-    if through_align == 0 or through_align != launches:
-        raise AssertionError("the host-object path did not launch the "
-                             "kernel through sw_align_batch")
+    check_fused("the host-object path", launches, through_align)
     return launches, through_align
 
 
-def phase_mesh(ctx, tmp: str, shape: str = "2x2"):
+def phase_mesh(ctx, tmp: str, shape: str = "2x2", expect=None):
     """--mesh SHAPE --shard-genomes at real size, its cells cycled over
-    the visible cards; returns (SW launches, DP cells) of the run."""
+    the visible cards; returns (SW launches, fused launches, rectangle
+    cells) of the run."""
     from kslam_tpu_torch.ops import sw_cuda
     from kslam_tpu_torch.parallel import dist
     from kslam_tpu_torch.utils import metrics
@@ -806,11 +1132,12 @@ def phase_mesh(ctx, tmp: str, shape: str = "2x2"):
     metrics.reset()
     for dev in devs:
         torch.cuda.reset_peak_memory_stats(dev)
-    sw_cuda.LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
+    sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
     out = os.path.join(tmp, f"real_mesh_{shape}")
     wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
                    ["--mesh", shape, "--shard-genomes"])
-    launches, cells = sw_cuda.LAUNCHES, sw_cuda.LAUNCH_CELLS
+    launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    cells = sw_cuda.LAUNCH_CELLS
     peaks = {str(d): torch.cuda.max_memory_allocated(d) for d in devs}
     stages = metrics.summary()
     same = read_outputs(out, sam=False) == read_outputs(ctx["out"],
@@ -834,14 +1161,13 @@ def phase_mesh(ctx, tmp: str, shape: str = "2x2"):
     log(f"  mesh cells per device {dict(per_dev)}; peak device memory "
         + ", ".join(f"{d} {b / 2**30:.2f} GiB" for d, b in peaks.items())
         + " (torch.cuda.max_memory_allocated)")
-    log(f"  SW kernel on the mesh path: {launches} launches, {cells} DP "
-        f"cells; mesh_sw {sec.get('mesh_sw', 0.0):.3f} s")
+    log(f"  SW kernel on the mesh path: {launches} launches, {cells} "
+        f"rectangle cells; mesh_sw {sec.get('mesh_sw', 0.0):.4f} s")
     log(f"  XML, _PerRead, _abbreviated byte-identical to phase 5: {same}")
     if not same:
         raise AssertionError("the mesh run's outputs differ from phase 5")
-    if launches == 0:
-        raise AssertionError("the mesh path launched no SW kernel")
-    return launches, cells
+    check_fused("the mesh path", launches, fused, expect)
+    return launches, fused, cells
 
 
 def main() -> int:
@@ -880,30 +1206,36 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     rows = sw_cuda.launch_config(32768, 160, 192).rows
-    loop = sass_step_loop(sw_cuda.load_library()._name, rows)
-    if loop is None:
-        log("  SASS instructions per cell: not measured (no cuobjdump)")
-    else:
-        log(f"  SASS step loop of the main path's kernel (R={rows}): "
-            f"{loop[0]} instructions for {rows} cells, "
-            f"{loop[0] / rows:.2f} per cell; {dict(loop[1].most_common())}")
+    for kname, align in (("sw_forward", False), ("sw_align", True)):
+        loops = sass_step_loops(sw_cuda.load_library()._name, rows, align)
+        if not loops:
+            log(f"  {kname} SASS instructions per cell: not measured (no "
+                f"cuobjdump, or no step loop found)")
+            continue
+        for n_ins, ops in loops:
+            log(f"  {kname} SASS step loop at the main path's R={rows}: "
+                f"{n_ins} instructions for {rows} cells, "
+                f"{n_ins / rows:.2f} per cell; {dict(ops.most_common())}")
     log(f"  native host library: {native.BUILD_REPORT}")
     if host_lib is None:
         raise AssertionError("the native host library is absent: "
                              f"{native.BUILD_REPORT}")
 
     rng = np.random.default_rng(args.seed)
-    log("phase 3 kernel vs plain twin on the card")
+    log("phase 3 kernels vs their plain versions on the card")
     err, ms, plain_ms, bound = phase_kernel(rng, dev)
     # a generator of its own: phases 4-5 draw their data from rng alone
-    a_err, a_ms, a_plain_ms, a_bound = phase_align(
-        np.random.default_rng(args.seed + 1), dev)
+    align = phase_align(np.random.default_rng(args.seed + 1), dev)
+    # the fused launches of the 1.6 Gbp runs: one per batch of 32,768
+    # candidates
+    expect = 4 if (args.mbp, args.pairs) == (1600, 131072) else None
 
     with tempfile.TemporaryDirectory(prefix="kslam_smoke_") as tmp:
         log("phase 4 CLI cuda vs cpu on a small DB")
         small_launches = phase_e2e_small(rng, tmp)
         log(f"phase 5 real size: {args.mbp} Mbp DB, {args.pairs} pairs")
-        launches, cells, ctx = phase_real(rng, tmp, args.mbp, args.pairs)
+        launches, fused, cells, ctx = phase_real(rng, tmp, args.mbp,
+                                                 args.pairs, expect)
         log(f"phase 6 real-size SAM: {args.pairs} pairs")
         sam_launches = phase_sam(ctx, tmp)
         log(f"phase 7 host-object path (--device-pipeline off): "
@@ -911,34 +1243,45 @@ def main() -> int:
         if args.host_pairs < args.pairs:
             log(f"  depth cut: {args.host_pairs} of the {args.pairs} pairs "
                 f"(the host-object pairing is Python)")
-        flat_launches, align_launches = phase_host_path(
+        _, align_launches = phase_host_path(
             ctx, tmp, min(args.host_pairs, args.pairs))
         log(f"phase 8 real-size mesh (--mesh 2x2 --shard-genomes): "
             f"{args.pairs} pairs")
-        mesh_launches, mesh_cells = phase_mesh(ctx, tmp)
+        mesh_launches, mesh_fused, mesh_cells = phase_mesh(ctx, tmp,
+                                                           expect=expect)
 
+    flat, chunked = align["flat"], align["chunked"]
     kernels = {"kernels": [{
         "name": "sw_forward", "route": "cuda",
         "source": "kslam_tpu_torch/csrc/sw_forward.cu",
         "replaces": "kslam_tpu/ops/sw_pallas.py:163",
-        "launches": launches,
-        "launches_by_path": {"device_pipeline": launches,
-                             "sam": sam_launches,
-                             "flat_window": flat_launches,
-                             "mesh_2x2_shard_genomes": mesh_launches,
-                             **{f"small_{k}": v
-                                for k, v in small_launches.items()}},
-        "cells_main_path": cells, "cells_mesh_path": mesh_cells,
+        # every path now launches the fused sw_align instead
+        "launches": launches - fused,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1],
         "bound_share": bound[0] / ms, "library_ms": None}, {
-        "name": "sw_align_batch", "route": "cuda",
-        "source": "kslam_tpu_torch/ops/sw_cuda.py",
+        "name": "sw_align", "route": "cuda",
+        "source": "kslam_tpu_torch/csrc/sw_forward.cu",
         "replaces": "kslam_tpu/ops/sw_pallas.py:188",
-        "launches": align_launches,
-        "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain_ms,
-        "bound_ms": a_bound[0], "bound_by": a_bound[1],
-        "bound_share": a_bound[0] / a_ms, "library_ms": None}]}
+        "launches": fused,
+        "launches_by_path": {"device_pipeline": fused,
+                             "sam": sam_launches,
+                             "flat_window": align_launches,
+                             "mesh_2x2_shard_genomes": mesh_fused,
+                             **{f"small_{k}": v
+                                for k, v in small_launches.items()}},
+        "rectangle_cells_main_path": cells,
+        "rectangle_cells_mesh_path": mesh_cells,
+        "max_abs_err": align["max_abs_err"], "ms": flat["ms"],
+        "composition_ms": flat["composition_ms"],
+        "plain_ms": flat["plain_ms"], "bound_ms": flat["bound_ms"],
+        "bound_by": flat["bound_by"], "bound_share": flat["bound_share"],
+        "composition_bound_share": flat["composition_bound_share"],
+        "cells_needed": flat["cells_needed"],
+        "cells_computed": flat["cells_computed"],
+        "cells_rectangle": flat["cells_rectangle"],
+        "shape": "B=32768 Lq=Lr=160 (flat window)",
+        "chunked": chunked, "library_ms": None}]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

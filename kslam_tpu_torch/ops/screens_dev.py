@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .lca import segment_reduce
@@ -208,6 +209,44 @@ def pseudo_assembly_chains(cols: PairCols):
     return perm, cseg
 
 
+def _chain_extents(cseg):
+    """(first row, length) of each chain, in chain id order, of rows
+    sorted by chain (cseg: chain ids 0, 1, ... in row order)."""
+    n = cseg.shape[0]
+    first = torch.ones(n, dtype=torch.bool, device=cseg.device)
+    first[1:] = cseg[1:] != cseg[:-1]
+    starts = torch.nonzero(first).squeeze(1)
+    return starts, torch.diff(starts, append=starts.new_tensor([n]))
+
+
+def _chain_sums(x, starts, lens):
+    """Per-chain sums of x [P, C], each chain's rows added one after the
+    other in row order from 0, as XLA:CPU's scatter adds them, on any
+    device: step k adds row start[c] + k to every chain c longer than k.
+    Chains are visited longest first, so the chains of step k are a
+    prefix.  One host sync, then one Python step (a gather and an add)
+    per row of the longest chain: the cost grows with the longest chain,
+    not with P, and deep coverage can make one chain a whole entry (1e5
+    steps or more).  That is acceptable only while pseudo_assembly_device
+    stays off the CLI path (the CLI rescores on the host); were it to
+    reach the CLI, one launch of one thread per chain adding its rows in
+    order would replace the loop."""
+    acc = x.new_zeros((len(starts),) + x.shape[1:])
+    if len(starts) == 0:
+        return acc
+    order = torch.argsort(lens, descending=True, stable=True)
+    first = starts[order]
+    lens_host = lens[order].cpu().numpy()
+    # the number of chains longer than k, for every step k
+    live = np.searchsorted(-lens_host, -np.arange(int(lens_host[0])),
+                           side="left")
+    for k, m in enumerate(live.tolist()):
+        acc[:m] += x[first[:m] + k]
+    out = torch.empty_like(acc)
+    out[order] = acc
+    return out
+
+
 def pseudo_assembly_device(cols: PairCols) -> PairCols:
     """pseudoAssembly (PairedOverlap.h:471-576) with float32 rescoring on
     the device: rescores in place, input order preserved (the reference
@@ -218,29 +257,29 @@ def pseudo_assembly_device(cols: PairCols) -> PairCols:
     0/0 -> nan and x/0 -> inf, non-finite scores -> 0, trunc -> int64
     (saturating, as XLA's convert does) -> & 0xFFFFFFFF -> int32.  The
     per-chain float32 sums add rows in chain order, as XLA:CPU's scatter
-    does: scatter_add on the CPU adds in row order, so the CPU result
-    equals the reference package's exactly; on CUDA its atomics add in
-    any order, so a chain's sum can differ in its last bits."""
-    p = cols.group.shape[0]
-    dev = cols.group.device
+    does (_chain_sums), so the result is the reference package's exactly
+    on the CPU and on a card alike.  A chain never mixes valid and
+    invalid rows (pseudo_assembly_chains breaks chains where `valid`
+    changes), so a chain's valid count is its length or 0."""
     perm, cseg = pseudo_assembly_chains(cols)
     out = _permute(cols, perm)
     valid = out.valid
+    starts, lens = _chain_extents(cseg)
+    n_chains = len(starts)
     span = torch.abs(out.ref_end - out.ref_start).to(torch.float32)
     score_f = (out.combined_score & U32_MASK).to(torch.float32)
     pb = torch.where(span != 0, score_f / span, torch.inf)
 
-    def seg_sum(x):
-        return torch.zeros(p, dtype=x.dtype, device=dev).scatter_add_(
-            0, cseg, x)
-
-    cnt = seg_sum(valid.to(torch.int64))
-    nb = seg_sum(torch.where(valid, span, 0.0))
-    pbs = seg_sum(torch.where(valid, pb, 0.0))
+    sums = _chain_sums(torch.stack([torch.where(valid, span, 0.0),
+                                    torch.where(valid, pb, 0.0)], 1),
+                       starts, lens)
+    nb, pbs = sums[:, 0], sums[:, 1]
+    cnt = torch.where(valid[starts], lens, 0)
     hi = segment_reduce(torch.where(valid, out.ref_end, -2**31)
-                        .to(torch.int64), cseg, p, "amax", -2**31)
+                        .to(torch.int64), cseg, n_chains, "amax", -2**31)
     start0 = segment_reduce(torch.where(valid, out.ref_start, 2**31 - 1)
-                            .to(torch.int64), cseg, p, "amin", 2**31 - 1)
+                            .to(torch.int64), cseg, n_chains, "amin",
+                            2**31 - 1)
 
     length = (hi - start0).to(torch.float32)
     cov = nb / length                    # 0/0 -> nan, x/0 -> inf (IEEE)

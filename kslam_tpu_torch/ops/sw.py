@@ -2,12 +2,12 @@
 candidate window builders (chunked for the device pipeline, flat for the
 host-object path) and the begin-position reverse pass.
 
-Counterpart of kslam_tpu/ops/sw.py.  The forward pass itself (score and
-end positions, the reference's tie-break contract: max score, then the
-smallest ref column, then the smallest query row) is
-ops/sw_cuda.sw_forward_batch: the hand-written CUDA kernel for CUDA
-tensors, its plain torch twin for CPU tensors.  Codes are A/C/T/G = 0..3
-and N = 4; N scores 0 and doubles as padding.
+Counterpart of kslam_tpu/ops/sw.py.  The alignment itself (score, begin
+and end positions, the reference's tie-break contract: max score, then
+the smallest ref column, then the smallest query row) is
+ops/sw_cuda.sw_align_batch: the hand-written fused CUDA kernel for CUDA
+tensors, its plain torch composition for CPU tensors.  Codes are
+A/C/T/G = 0..3 and N = 4; N scores 0 and doubles as padding.
 """
 
 from __future__ import annotations
@@ -123,24 +123,23 @@ def align_overlaps_batch(read_id, entry_id, rel_pos, rc, valid,
     return SWAlignments(al.score, rb + ref_start, re + ref_start, qb, qe)
 
 
-def align_overlaps_batch_chunked(read_id, entry_id, rel_pos, rc, valid,
-                                 read_scodes, read_lengths,
-                                 genome_chunks, entry_offsets,
-                                 match: int, mismatch: int, gap_open: int,
-                                 gap_extend: int, window_len: int,
-                                 n_valid=None) -> SWAlignments:
-    """performSmithWatermanOnRange2 (SmithWaterman.h:184-233), batched:
-    the reference window (at max(rel, 0), query length, clipped at the
-    entry end, reverse-complemented for RC overlaps) is assembled from
-    CHUNK-aligned genome rows with per-row masks, aligned forward, then
-    aligned again on fixed flips of the masked regions for the begin
-    positions; RC coordinates are flipped back to forward-ref space and
-    the window start is added.
+class ChunkedWindows(NamedTuple):
+    q: torch.Tensor          # int32 [B, Lq] query codes, N past qlen
+    r: torch.Tensor          # int32 [B, W] ref window, N outside it
+    dstart: torch.Tensor     # int32 [B] the window's first column in r
+    wlen: torch.Tensor       # int32 [B] window length
+    qlen: torch.Tensor       # int32 [B] query length
+    ref_start: torch.Tensor  # int32 [B] window start in the entry
 
-    Leading N rows/columns stay zero in the DP and trailing-N cells only
-    tie real maxima at later columns/rows, which the tie-break rejects,
-    so the masked wide scan equals the compact-window result.  Rows of
-    invalid candidates produce arbitrary results; callers filter."""
+
+def chunked_windows(read_id, entry_id, rel_pos, rc, read_scodes,
+                    read_lengths, genome_chunks, entry_offsets,
+                    window_len: int) -> ChunkedWindows:
+    """The windows of align_overlaps_batch_chunked: the reference window
+    (at max(rel, 0), query length, clipped at the entry end,
+    reverse-complemented for RC overlaps) assembled from W = nch * CHUNK
+    columns of CHUNK-aligned genome rows, N outside it, and the query
+    padded with N past its length."""
     dev = read_scodes.device
     lq = window_len
     nch = (window_len + CHUNK - 1) // CHUNK + 1
@@ -180,28 +179,51 @@ def align_overlaps_batch_chunked(read_id, entry_id, rel_pos, rc, valid,
     q = read_scodes[safe_read].to(torch.int32)
     jq = torch.arange(lq, dtype=torch.int32, device=dev)[None, :]
     qm = torch.where(jq < qlen[:, None], q, torch.full_like(q, 4))
+    return ChunkedWindows(qm, r, dstart, wlen, qlen, ref_start)
 
-    fwd = sw_forward_batch(qm, r, match, mismatch, gap_open, gap_extend,
-                           n_valid=n_valid)
-    zero = fwd.score == 0
 
-    # reverse pass on fixed flips with per-row valid regions
-    sq = lq - 1 - fwd.read_end
-    sr = w - 1 - fwd.ref_end
-    rev_q = torch.where(jq >= sq[:, None], torch.flip(qm, dims=[1]),
-                        torch.full_like(qm, 4))
-    rev_r = torch.where(j >= sr[:, None], torch.flip(r, dims=[1]), four)
-    rev = sw_forward_batch(rev_q, rev_r, match, mismatch, gap_open,
-                           gap_extend, n_valid=n_valid)
+def chunked_coordinates(al: SWAlignments, win: ChunkedWindows,
+                        rc) -> SWAlignments:
+    """Window-coordinate alignments of chunked_windows' windows to
+    forward-ref entry coordinates: the window's first column off, the RC
+    flip (SmithWaterman.h:212-227, score-0 rows included), the window
+    start on."""
+    zero = al.score == 0
+    minus1 = torch.full_like(al.score, -1)
+    k_end = torch.where(zero, minus1, al.ref_end - win.dstart)
+    k_begin = torch.where(zero, minus1, al.ref_begin - win.dstart)
+    rb = torch.where(rc, win.wlen - 1 - k_end, k_begin)
+    re = torch.where(rc, win.wlen - 1 - k_begin, k_end)
+    qb = torch.where(rc, win.qlen - 1 - al.query_end, al.query_begin)
+    qe = torch.where(rc, win.qlen - 1 - al.query_begin, al.query_end)
+    return SWAlignments(al.score, rb + win.ref_start, re + win.ref_start,
+                        qb, qe)
 
-    minus1 = torch.full_like(fwd.score, -1)
-    k_end = torch.where(zero, minus1, fwd.ref_end - dstart)
-    ref_begin_w = torch.where(zero, minus1, k_end - (rev.ref_end - sr))
-    query_begin = torch.where(zero, torch.zeros_like(fwd.score),
-                              fwd.read_end - (rev.read_end - sq))
 
-    rb = torch.where(rc, wlen - 1 - k_end, ref_begin_w)
-    re = torch.where(rc, wlen - 1 - ref_begin_w, k_end)
-    qb = torch.where(rc, qlen - 1 - fwd.read_end, query_begin)
-    qe = torch.where(rc, qlen - 1 - query_begin, fwd.read_end)
-    return SWAlignments(fwd.score, rb + ref_start, re + ref_start, qb, qe)
+def align_overlaps_batch_chunked(read_id, entry_id, rel_pos, rc, valid,
+                                 read_scodes, read_lengths,
+                                 genome_chunks, entry_offsets,
+                                 match: int, mismatch: int, gap_open: int,
+                                 gap_extend: int, window_len: int,
+                                 n_valid=None) -> SWAlignments:
+    """performSmithWatermanOnRange2 (SmithWaterman.h:184-233), batched:
+    the reference window (at max(rel, 0), query length, clipped at the
+    entry end, reverse-complemented for RC overlaps) is assembled from
+    CHUNK-aligned genome rows with per-row masks (chunked_windows) and
+    aligned (sw_cuda.sw_align_batch: one fused launch of the forward and
+    reverse passes on CUDA); RC coordinates are flipped back to
+    forward-ref space and the window start is added.
+
+    Leading N rows/columns stay zero in the DP and trailing-N cells only
+    tie real maxima at later columns/rows, which the tie-break rejects,
+    so the masked wide window equals the compact-window result, and the
+    reverse pass over the aligned prefixes equals the reference package's
+    reverse pass on fixed flips.  Rows of invalid candidates produce
+    arbitrary results; callers filter."""
+    from . import sw_cuda
+    win = chunked_windows(read_id, entry_id, rel_pos, rc, read_scodes,
+                          read_lengths, genome_chunks, entry_offsets,
+                          window_len)
+    al = sw_cuda.sw_align_batch(win.q, win.r, match, mismatch, gap_open,
+                                gap_extend, n_valid=n_valid)
+    return chunked_coordinates(al, win, rc)

@@ -1,19 +1,27 @@
-"""Batched Smith-Waterman forward pass: the hand-written CUDA kernel
-(csrc/sw_forward.cu) and its plain torch twin.
+"""Batched Smith-Waterman: the hand-written CUDA kernels
+(csrc/sw_forward.cu) and their plain torch versions.
 
-Replaces kslam_tpu/ops/sw_pallas.py (`_sw_kernel` / `_sw_kernel_body`,
-launched by `sw_forward_batch`): local alignment with affine gaps, per row
-the score, the ref end column (-1 when the score is 0) and the query end
-row (0 when the score is 0), ties broken by the smallest ref column, then
-the smallest query row, through the same packed int32 key
-(h << 20) + ((1023 - j) << 10) + (1023 - i) - (2^20 - 1).
+sw_forward_batch replaces kslam_tpu/ops/sw_pallas.py (`_sw_kernel` /
+`_sw_kernel_body`, launched by `sw_forward_batch`): local alignment with
+affine gaps, per row the score, the ref end column (-1 when the score is
+0) and the query end row (0 when the score is 0), ties broken by the
+smallest ref column, then the smallest query row, through the same packed
+int32 key (h << 20) + ((1023 - j) << 10) + (1023 - i) - (2^20 - 1).
 
-What bounds it on the H100: integer work.  A cell needs at least 8.5
+sw_align_batch replaces kslam_tpu/ops/sw_pallas.py:188-205 (forward
+pass, reverse gather of the aligned prefixes, forward pass again: the
+begin positions too) and, on the device pipeline, the flips and masks of
+kslam_tpu/ops/sw.py:277-292, with one fused launch: the forward pass over
+each window's non-N columns, then the reverse pass in the same thread
+group from the same shared memory, over the aligned prefixes only.  Its
+plain version is that composition over the forward pass's plain twin.
+
+What bounds both on the H100: integer work.  A cell needs at least 8.5
 int32 operations with Hopper's three-operand DPX max forms (score lookup,
 h', H, two for F, two for E, a shift-add and half a three-way max for the
 key); a pass over B = 32768
 candidates of 160 x 192 cells is ~1e9 cells, while the bytes are only the
-codes in and 12 B per row out.  The kernel keeps the whole DP in
+codes in and 12 (20) B per row out.  The kernel keeps the whole DP in
 registers: a group of G threads per alignment, each holding R query rows,
 sweeps the ref columns as a wavefront with the row above handed down by
 warp shuffles (no device-memory scratch), scores a cell with one byte
@@ -21,11 +29,11 @@ permute of a per-column score word staged in shared memory, and updates
 it with DPX max ops.  launch_config chooses G, R and the launch from the
 shapes.
 
-The wrapper sends a CPU tensor to the plain twin and a CUDA tensor to the
-kernel; a CUDA tensor never falls back.  LAUNCHES counts kernel launches;
-ALIGN_LAUNCHES those made through the sw_align_batch composition (the
-flat-window path of --device-pipeline off); LAUNCH_CELLS the DP cells
-(B * Lq * Lr) of every launch.
+The wrappers send a CPU tensor to the plain version and a CUDA tensor to
+the kernel; a CUDA tensor never falls back.  LAUNCHES counts kernel
+launches of both kernels; ALIGN_LAUNCHES the fused ones; LAUNCH_CELLS
+the rectangle cells of the work (B * Lq * Lr per forward launch,
+2 * B * Lq * Lr per fused launch, whatever the trimmed kernel computes).
 """
 
 from __future__ import annotations
@@ -41,9 +49,9 @@ import torch
 from .sw import SWAlignments, SWEnds, _reverse_gather
 
 NEG = -(2 ** 30)
-LAUNCHES = 0          # kernel launches made by sw_forward_batch
-ALIGN_LAUNCHES = 0    # of those, the ones made through sw_align_batch
-LAUNCH_CELLS = 0      # DP cells (B * Lq * Lr) of those launches
+LAUNCHES = 0          # kernel launches (forward and fused)
+ALIGN_LAUNCHES = 0    # of those, the fused sw_align_batch launches
+LAUNCH_CELLS = 0      # rectangle cells of those launches
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -58,6 +66,7 @@ BUILD_LOG = ""        # nvcc/ptxas output of the build this process made
 KERNEL_ROWS = (4, 8, 12, 16, 20, 24, 32)
 MAX_THREADS = 128               # threads per block (kMaxThreads)
 SMEM_BLOCK_LIMIT = 232_448      # shared memory one block may use (227 KB)
+EXTENT_WORDS = 2                # fused kernel: c0, c1 beside the columns
 
 
 class LaunchConfig(NamedTuple):
@@ -65,35 +74,39 @@ class LaunchConfig(NamedTuple):
     rows: int         # R query rows per thread
     threads: int      # threads per block
     blocks: int       # grid size
-    stride: int       # shared-memory words per alignment (>= Lr)
+    stride: int       # shared-memory words per alignment's columns (>= Lr)
     smem: int         # dynamic shared memory per block, bytes
 
 
-def _config_for(b: int, lr: int, group: int, rows: int) -> LaunchConfig:
+def _config_for(b: int, lr: int, group: int, rows: int,
+                align: bool = False) -> LaunchConfig:
     # stride = Lr rounded up to G mod 32 words, so that the alignments of
-    # one warp read distinct banks at the same step
+    # one warp read distinct banks at the same step; the fused kernel adds
+    # two words per alignment (its first and last non-N column)
     stride = lr + (group - lr) % 32
+    words = stride + (EXTENT_WORDS if align else 0)
     threads = MAX_THREADS
     # halve the block until its shared memory fits
     while threads > max(group, 32) and \
-            (threads // group) * stride * 4 > SMEM_BLOCK_LIMIT:
+            (threads // group) * words * 4 > SMEM_BLOCK_LIMIT:
         threads //= 2
     per_block = threads // group
     return LaunchConfig(group, rows, threads, -(-b // per_block), stride,
-                        per_block * stride * 4)
+                        per_block * words * 4)
 
 
-def launch_config(b: int, lq: int, lr: int) -> LaunchConfig:
-    """The kernel's launch for b alignments of lq x lr cells: the
-    smallest group G (a power of two) with 32 * G >= lq, then the
-    smallest R of KERNEL_ROWS with G * R >= lq (G = 8, R = 20 at the main
-    path's lq = 160; G = 32, R = 32 at 1024), with the block cut until
-    its shared memory fits."""
+def launch_config(b: int, lq: int, lr: int,
+                  align: bool = False) -> LaunchConfig:
+    """The kernel's launch for b alignments of lq x lr cells (align: the
+    fused kernel): the smallest group G (a power of two) with
+    32 * G >= lq, then the smallest R of KERNEL_ROWS with G * R >= lq
+    (G = 8, R = 20 at the main path's lq = 160; G = 32, R = 32 at 1024),
+    with the block cut until its shared memory fits."""
     if b < 1 or not 1 <= lq <= 1024 or not 1 <= lr <= 1024:
         raise ValueError(f"no SW kernel launch for B={b}, Lq={lq}, Lr={lr}")
     group = next(g for g in (1, 2, 4, 8, 16, 32) if 32 * g >= lq)
     rows = next(r for r in KERNEL_ROWS if group * r >= lq)
-    return _config_for(b, lr, group, rows)
+    return _config_for(b, lr, group, rows, align)
 
 
 def _check_limits(lq: int, lr: int, match: int) -> None:
@@ -185,8 +198,9 @@ def _build_library():
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.kslam_sw_forward.argtypes = [vp, vp, vp, vp] + [ci] * 14 + [vp]
-    lib.kslam_sw_forward.restype = ci
+    for fn in (lib.kslam_sw_forward, lib.kslam_sw_align):
+        fn.argtypes = [vp, vp, vp, vp] + [ci] * 14 + [vp]
+        fn.restype = ci
     return lib
 
 
@@ -199,8 +213,10 @@ def load_library():
 
 
 def _launch(q, r, match, mismatch, gap_open, gap_extend, n_valid,
-            config: LaunchConfig | None = None) -> SWEnds:
-    global LAUNCHES, LAUNCH_CELLS
+            config: LaunchConfig | None = None, align: bool = False):
+    """One launch of the forward kernel (SWEnds) or, with align, of the
+    fused kernel (SWAlignments)."""
+    global LAUNCHES, ALIGN_LAUNCHES, LAUNCH_CELLS
     dev = q.device
     b, lq = q.shape
     lr = r.shape[1]
@@ -212,17 +228,19 @@ def _launch(q, r, match, mismatch, gap_open, gap_extend, n_valid,
         nv = torch.full((1,), b, dtype=torch.int32, device=dev)
     else:
         nv = torch.as_tensor(n_valid, device=dev).to(torch.int32).reshape(1)
-    out = torch.empty((3, b), dtype=torch.int32, device=dev)
-    cfg = config or launch_config(b, lq, lr)
+    n_out = 5 if align else 3
+    out = torch.empty((n_out, b), dtype=torch.int32, device=dev)
+    cfg = config or launch_config(b, lq, lr, align=align)
     for t, shape, dt in ((r, (b, lr), torch.int32), (nv, (1,), torch.int32),
-                         (out, (3, b), torch.int32)):
+                         (out, (n_out, b), torch.int32)):
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"SW kernel operand mismatch: {t.device} "
                              f"{t.dtype} {tuple(t.shape)}, want {dev} {dt} "
                              f"{shape} contiguous")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.kslam_sw_forward(
+    entry = lib.kslam_sw_align if align else lib.kslam_sw_forward
+    err = entry(
         q.data_ptr(), r.data_ptr(), nv.data_ptr(), out.data_ptr(), b, lq, lr,
         cfg.group, cfg.rows, cfg.stride, cfg.threads,
         cfg.blocks, cfg.smem, match, mismatch, gap_open, gap_extend,
@@ -232,8 +250,25 @@ def _launch(q, r, match, mismatch, gap_open, gap_extend, n_valid,
         raise RuntimeError(f"SW kernel launch failed: cudaError {err} "
                            f"({cfg})")
     LAUNCHES += 1
+    if align:
+        ALIGN_LAUNCHES += 1
+        LAUNCH_CELLS += 2 * b * lq * lr
+        return SWAlignments(*out)
     LAUNCH_CELLS += b * lq * lr
     return SWEnds(out[0], out[1], out[2])
+
+
+def _check_inputs(q, r, match: int) -> None:
+    if q.dim() != 2 or r.dim() != 2 or q.shape[0] != r.shape[0]:
+        raise ValueError(f"q {tuple(q.shape)} and r {tuple(r.shape)} must "
+                         f"be [B, Lq] and [B, Lr]")
+    if q.device != r.device:
+        raise ValueError(f"q on {q.device}, r on {r.device}")
+    if q.dtype.is_floating_point or r.dtype.is_floating_point:
+        raise ValueError("q and r must hold integer codes 0..4")
+    _check_limits(q.shape[1], r.shape[1], match)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SW kernel for device {q.device}")
 
 
 def sw_forward_batch(q, r, match: int, mismatch: int, gap_open: int,
@@ -243,19 +278,10 @@ def sw_forward_batch(q, r, match: int, mismatch: int, gap_open: int,
     (0, -1, 0) without running the DP; the kernel reads it on the device,
     with no host sync.  CPU tensors run the plain twin; CUDA tensors the
     kernel."""
-    if q.dim() != 2 or r.dim() != 2 or q.shape[0] != r.shape[0]:
-        raise ValueError(f"q {tuple(q.shape)} and r {tuple(r.shape)} must "
-                         f"be [B, Lq] and [B, Lr]")
-    if q.device != r.device:
-        raise ValueError(f"q on {q.device}, r on {r.device}")
-    if q.dtype.is_floating_point or r.dtype.is_floating_point:
-        raise ValueError("q and r must hold integer codes 0..4")
-    _check_limits(q.shape[1], r.shape[1], match)
+    _check_inputs(q, r, match)
     if q.device.type == "cpu":
         return sw_forward_batch_plain(q, r, match, mismatch, gap_open,
                                       gap_extend, n_valid=n_valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"no SW kernel for device {q.device}")
     if q.shape[0] == 0:
         z = torch.zeros(0, dtype=torch.int32, device=q.device)
         return SWEnds(z, z, z)
@@ -263,13 +289,17 @@ def sw_forward_batch(q, r, match: int, mismatch: int, gap_open: int,
 
 
 def _align_composition(forward, q, r, match: int, mismatch: int,
-                       gap_open: int, gap_extend: int) -> SWAlignments:
+                       gap_open: int, gap_extend: int,
+                       n_valid=None) -> SWAlignments:
     """Forward pass, reverse gather of the aligned prefixes, forward pass
-    again: scores, end and begin positions (sw_pallas.sw_align_batch)."""
-    fwd = forward(q, r, match, mismatch, gap_open, gap_extend)
+    again: scores, end and begin positions (sw_pallas.sw_align_batch).
+    Rows >= n_valid give (0, -1, -1, 0, 0)."""
+    fwd = forward(q, r, match, mismatch, gap_open, gap_extend,
+                  n_valid=n_valid)
     q_rev = _reverse_gather(q, fwd.read_end)
     r_rev = _reverse_gather(r, fwd.ref_end)
-    rev = forward(q_rev, r_rev, match, mismatch, gap_open, gap_extend)
+    rev = forward(q_rev, r_rev, match, mismatch, gap_open, gap_extend,
+                  n_valid=n_valid)
     zero = fwd.score == 0
     ref_begin = torch.where(zero, -1, fwd.ref_end - rev.ref_end)
     query_begin = torch.where(zero, 0, fwd.read_end - rev.read_end)
@@ -278,21 +308,26 @@ def _align_composition(forward, q, r, match: int, mismatch: int,
 
 
 def sw_align_batch(q, r, match: int, mismatch: int, gap_open: int,
-                   gap_extend: int) -> SWAlignments:
-    """Forward + reverse pass (begin positions) over sw_forward_batch:
-    the kernel for CUDA tensors, the plain twin for CPU ones; counterpart
-    of sw_pallas.sw_align_batch.  ALIGN_LAUNCHES counts the kernel
-    launches made here."""
-    global ALIGN_LAUNCHES
-    before = LAUNCHES
-    out = _align_composition(sw_forward_batch, q, r, match, mismatch,
-                             gap_open, gap_extend)
-    ALIGN_LAUNCHES += LAUNCHES - before
-    return out
+                   gap_extend: int, n_valid=None) -> SWAlignments:
+    """Scores, begin and end positions over q [B, Lq] and r [B, Lr]
+    (window coordinates; counterpart of sw_pallas.sw_align_batch): one
+    launch of the fused kernel for CUDA tensors, the plain composition
+    for CPU ones.  n_valid as for sw_forward_batch; rows >= n_valid give
+    (0, -1, -1, 0, 0)."""
+    _check_inputs(q, r, match)
+    if q.device.type == "cpu":
+        return sw_align_batch_plain(q, r, match, mismatch, gap_open,
+                                    gap_extend, n_valid=n_valid)
+    if q.shape[0] == 0:
+        z = torch.zeros(0, dtype=torch.int32, device=q.device)
+        return SWAlignments(z, z, z, z, z)
+    return _launch(q, r, match, mismatch, gap_open, gap_extend, n_valid,
+                   align=True)
 
 
 def sw_align_batch_plain(q, r, match: int, mismatch: int, gap_open: int,
-                         gap_extend: int) -> SWAlignments:
-    """The same composition over the plain twin, on any device."""
+                         gap_extend: int, n_valid=None) -> SWAlignments:
+    """The fused kernel's plain version: the composition over the forward
+    pass's plain twin, on any device."""
     return _align_composition(sw_forward_batch_plain, q, r, match, mismatch,
-                              gap_open, gap_extend)
+                              gap_open, gap_extend, n_valid=n_valid)

@@ -1,7 +1,8 @@
 """Tests of kslam_tpu_torch that need a CUDA device: the hand-written SW
-kernel against its plain torch twin (odd shapes, n_valid, every row-count
-instantiation, wide scores; alone and in the sw_align_batch
-composition), the host screen on CUDA against the CPU, the sharded phase
+kernels against their plain torch versions (the forward kernel and the
+fused forward + reverse kernel: odd shapes, n_valid, every row-count
+instantiation, wide scores, the chunked windows of the device pipeline),
+the host screen on CUDA against the CPU, the sharded phase
 A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
 against the CPU, and the CUDA CLI runs (classification and SAM) against
 the CPU ones.  They import neither jax nor kslam_tpu, so they run
@@ -22,6 +23,7 @@ from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
 from kslam_tpu_torch.db.host_table import HostTable
 from kslam_tpu_torch.db.kmer_index import KmerIndex
 from kslam_tpu_torch.db.taxonomy import TaxonomyDB
+from kslam_tpu_torch.eval.sw_windows import n_windows
 from kslam_tpu_torch.ops import encode, screen, screens_dev, sw, sw_cuda
 from kslam_tpu_torch.parallel import dist
 
@@ -177,9 +179,11 @@ def test_chunked_alignment_matches_cpu(cuda_device):
             rng.integers(-20, 19_000, b).astype(np.int32),
             rng.random(b) < 0.5, np.ones(b, bool), reads, lens, chunks,
             offsets)
+    fused = sw_cuda.ALIGN_LAUNCHES
     got = sw.align_overlaps_batch_chunked(
         *(torch.as_tensor(x, device=cuda_device) for x in args), 2, 3, 5, 2,
         window_len=l)
+    assert sw_cuda.ALIGN_LAUNCHES == fused + 1
     ref = sw.align_overlaps_batch_chunked(
         *(torch.as_tensor(x) for x in args), 2, 3, 5, 2, window_len=l)
     for a, b_ in zip(got, ref):
@@ -189,20 +193,103 @@ def test_chunked_alignment_matches_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("params", PARAMS)
 def test_align_composition_matches_plain(cuda_device, params):
-    """sw_align_batch (two kernel passes) against the same composition
-    over the plain twin at the flat window's shapes, Lq = Lr = 160."""
+    """sw_align_batch (one fused launch) against the composition over the
+    plain twin at the flat window's shapes, Lq = Lr = 160."""
     rng = np.random.default_rng(8)
     b = 4096
     q, r = _similar(rng, b, 160, 160, mut=0.05)
     q[::11] = 4                                      # all-N rows
     qd, rd = (torch.as_tensor(x, device=cuda_device) for x in (q, r))
-    before = sw_cuda.LAUNCHES
+    before, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    cells = sw_cuda.LAUNCH_CELLS
     got = sw_cuda.sw_align_batch(qd, rd, *params)
-    assert sw_cuda.LAUNCHES == before + 2
+    assert sw_cuda.LAUNCHES == before + 1
+    assert sw_cuda.ALIGN_LAUNCHES == fused + 1
+    assert sw_cuda.LAUNCH_CELLS == cells + 2 * b * 160 * 160
     ref = sw_cuda.sw_align_batch_plain(qd, rd, *params)
     for a, b_ in zip(got, ref):
         assert torch.equal(a, b_)
     assert (got.ref_begin[::11] == -1).all()
+
+
+def _assert_fused_equal_to_plain(q, r, params, n_valid=None, config=None):
+    nv = None if n_valid is None else torch.tensor(
+        n_valid, dtype=torch.int32, device=q.device)
+    before, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    if config is None:
+        got = sw_cuda.sw_align_batch(q, r, *params, n_valid=nv)
+    else:
+        got = sw_cuda._launch(q, r, *params, nv, config=config, align=True)
+    assert sw_cuda.LAUNCHES == before + 1
+    assert sw_cuda.ALIGN_LAUNCHES == fused + 1
+    ref = sw_cuda.sw_align_batch_plain(q, r, *params, n_valid=nv)
+    for a, b_ in zip(got, ref):
+        assert torch.equal(a, b_)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lr", [(1, 1), (7, 5), (17, 33), (20, 192),
+                                   (150, 192), (160, 160), (160, 192),
+                                   (161, 192)])
+def test_fused_kernel_odd_shapes(cuda_device, lq, lr):
+    """The fused kernel against its plain version with trimmed windows,
+    off the exact fit and at a batch (3001) off the block size."""
+    rng = np.random.default_rng(lq * 1000 + lr + 1)
+    q, r = _similar(rng, 3001, min(lq, lr), lr, mut=0.05)
+    q = np.concatenate([q, rng.integers(0, 5, (3001, lq - q.shape[1]))],
+                       axis=1).astype(np.int32)
+    q[rng.random(q.shape) < 0.03] = 4
+    q[::13] = 4
+    q, r = n_windows(rng, q, r)
+    qd, rd = (torch.as_tensor(x, device=cuda_device) for x in (q, r))
+    for params in PARAMS:
+        got = _assert_fused_equal_to_plain(qd, rd, params)
+        assert int(got.score.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["zero", "one", "b-1", "b", "odd"])
+def test_fused_kernel_n_valid(cuda_device, which):
+    rng = np.random.default_rng(16)
+    b = 4133
+    q, r = n_windows(rng, *_similar(rng, b, 160, 192, mut=0.05))
+    cfg = sw_cuda.launch_config(b, 160, 192, align=True)
+    nv = {"zero": 0, "one": 1, "b-1": b - 1, "b": b,
+          "odd": 7 * (cfg.threads // cfg.group) + 3}[which]
+    qd, rd = (torch.as_tensor(x, device=cuda_device) for x in (q, r))
+    got = _assert_fused_equal_to_plain(qd, rd, (2, 3, 5, 2), n_valid=nv)
+    for col, dead in zip(got, (0, -1, -1, 0, 0)):
+        assert (col[nv:] == dead).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", sw_cuda.KERNEL_ROWS)
+def test_fused_kernel_every_instantiation(cuda_device, rows):
+    rng = np.random.default_rng(rows + 100)
+    b, lq, lr = 1500, 100, 120
+    q, r = n_windows(rng, *_similar(rng, b, lq, lr, mut=0.08))
+    group = next(g for g in (1, 2, 4, 8, 16, 32) if g * rows >= lq)
+    cfg = sw_cuda._config_for(b, lr, group, rows, align=True)
+    qd, rd = (torch.as_tensor(x, device=cuda_device) for x in (q, r))
+    for params in PARAMS:
+        _assert_fused_equal_to_plain(qd, rd, params, n_valid=b - 11,
+                                     config=cfg)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_largest_shape_and_wide_scores(cuda_device):
+    """Lq = Lr = 1024 with match 1; scores outside int8 (the
+    compare-and-select path) on uint8 codes."""
+    rng = np.random.default_rng(1025)
+    q, r = n_windows(rng, *_similar(rng, 300, 1024, 1024, mut=0.1))
+    _assert_fused_equal_to_plain(torch.as_tensor(q, device=cuda_device),
+                                 torch.as_tensor(r, device=cuda_device),
+                                 (1, 4, 6, 1))
+    q, r = n_windows(rng, *_similar(rng, 2000, 10, 90, mut=0.1))
+    qd, rd = (torch.as_tensor(x, device=cuda_device).to(torch.uint8)
+              for x in (q, r))
+    _assert_fused_equal_to_plain(qd, rd, (200, 150, 300, 10), n_valid=1990)
 
 
 @pytest.mark.cuda
@@ -361,11 +448,9 @@ def test_mesh_phase_a_matches_cpu(cuda_device, gshard):
 @pytest.mark.cuda
 def test_pseudo_assembly_device_cuda_vs_cpu(cuda_device):
     """The float32 pseudo-assembly on the card against the CPU (which
-    equals the reference package exactly): every column but the
-    rescored score is equal; scores may differ only where a chain's
-    float32 sums were added in another order by CUDA's atomics, so the
-    differing rows are counted and bounded, and each differs by a few
-    float32 roundings of its value."""
+    equals the reference package exactly): every column equal, the
+    rescored float32 scores included, since every chain's sums add its
+    rows in row order on both devices."""
     rng = np.random.default_rng(9)
     p = 200_000
     entry = rng.integers(0, 64, p).astype(np.int32)
@@ -382,15 +467,13 @@ def test_pseudo_assembly_device_cuda_vs_cpu(cuda_device):
         *(torch.as_tensor(c) for c in cols)))
     gpu = screens_dev.pseudo_assembly_device(screens_dev.PairCols(
         *(torch.as_tensor(c, device=cuda_device) for c in cols)))
-    for name in screens_dev.PairCols._fields:
-        if name != "combined_score":
-            assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
-    a = gpu.combined_score.cpu().numpy() & 0xFFFFFFFF
-    b_ = cpu.combined_score.numpy() & 0xFFFFFFFF
+    a = gpu.combined_score.cpu().numpy()
+    b_ = cpu.combined_score.numpy()
     changed = int((b_ != cols[3]).sum())
-    differ = a != b_
-    print(f"pseudo_assembly_device cuda vs cpu: {int(differ.sum())} of {p} "
-          f"rows differ ({changed} rows rescored on the CPU)")
+    differ = int((a != b_).sum())
+    print(f"pseudo_assembly_device cuda vs cpu: {differ} of {p} rows differ "
+          f"({changed} rows rescored on the CPU)")
     assert changed > p // 2
-    assert differ.sum() <= p // 100
-    assert (np.abs(a[differ] - b_[differ]) <= 1e-5 * b_[differ] + 2).all()
+    assert differ == 0
+    for name in screens_dev.PairCols._fields:
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))

@@ -90,6 +90,7 @@ COPIES = [
      ("shard_database", "shard_genomes")),
     ("parallel/multihost", "parallel/multihost", (), (),
      ("strided_chunks", "concat_sam_parts")),
+    ("eval/realistic", "eval/realistic", (), (), None),
 ]
 
 
@@ -208,8 +209,10 @@ def test_native_loader_reports_why_it_did_not_build(tmp_path,
 
 def test_kernel_wrapper_never_falls_back():
     """A tensor on neither the CPU nor a CUDA device is refused; the
-    wrapper has no path that swaps in the twin for a device tensor."""
+    wrappers have no path that swaps in the twin for a device tensor."""
     from kslam_tpu_torch.ops import sw_cuda
     q = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no SW kernel"):
         sw_cuda.sw_forward_batch(q, q, 2, 3, 5, 2)
+    with pytest.raises(ValueError, match="no SW kernel"):
+        sw_cuda.sw_align_batch(q, q, 2, 3, 5, 2)
