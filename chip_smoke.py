@@ -67,11 +67,30 @@ Phases (each prints its own line; any failure exits non-zero):
      placing the DB), the peak memory of every device, the mesh cells on
      each device, and the kernel's launches and rectangle cells on this
      path; every launch fused, 4 at the default size.
+  9. chunk pipeline: phase 5's DB and reads in 4 chunks of a quarter
+     of --pairs each (one device batch each at the default size)
+     through the CLI on cuda, --no-chunk-overlap (depth 1) and the
+     default (depth 3) in turns, five runs each (1, 3, 3, 1, 1, 3, 3,
+     1, 1, 3): XML, _PerRead and _abbreviated byte-identical across the
+     runs, >= 99% of pairs
+     classified, every SW launch fused; each run prints its wall, its
+     wall without db_load, reads/min both ways, its stage seconds and its
+     peak device memory, which must not pass phase 5's.  Then one run at each depth under torch.profiler
+     (CPU and CUDA activities): the device's busy share, the union of
+     the kernel, memcpy and memset intervals over the run's chunk_loop
+     span ("not measured" with the reason when the trace has none).
+     Then kslam_tpu_torch.eval.comparison on the runs' _PerRead against
+     the planted truth: its species-correct count must equal the run's
+     own count, and McNemar between depths 1 and 3 must find 0
+     discordant reads.
 Phase 4 also runs, on cuda, --mesh 2x2 (classification), --mesh 1x4
 --shard-genomes --sam-file, and two processes of --coordinator
-localhost:PORT --num-processes 2 sharing the card; each must launch the
-kernel and write what the single-device CPU run wrote (the two-process
-SAM compared as one header and its body lines sorted).
+localhost:PORT --num-processes 2 sharing the card; and three chunks of
+200 pairs with --sam-file (cpu and cuda at depth 3, cuda at depth 1) and
+with --mesh 2x2 on cuda at both depths, against the cpu run of the same
+chunks.  Each must launch the kernel and write what the single-device
+CPU run wrote (the two-process SAM compared as one header and its body
+lines sorted).
 The line before the last is a JSON object describing each kernel, the
 last line the contract object {"ok": true, "device": {...}}.
 """
@@ -775,9 +794,9 @@ def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
 
 def run_mesh_cuda(tmp: str, db: str, name: str, r1: str, r2, flags,
                   sam: bool, want) -> int:
-    """One CLI run on cuda with mesh flags; its files must equal `want`
-    (the single-device runs' files), every SW launch fused.  Returns its
-    fused sw_align launches."""
+    """One CLI run on cuda with `flags` (a mesh, a chunk-pipeline depth);
+    its files must equal `want` (the single-device CPU run's files),
+    every SW launch fused.  Returns its fused sw_align launches."""
     from kslam_tpu_torch.ops import sw_cuda
     out = os.path.join(tmp, f"small_{name}_cuda")
     extra = list(flags) + (["--sam-file", out + ".sam"] if sam else [])
@@ -897,6 +916,23 @@ def phase_e2e_small(rng, tmp: str) -> None:
     launches["mesh_1x4_shard_genomes_sam"] = run_mesh_cuda(
         tmp, db, "mesh_1x4_shard_genomes_sam", s1, s2,
         ["--mesh", "1x4", "--shard-genomes"], True, sam)
+    # the chunk pipeline over three chunks of 200 pairs: the cpu run
+    # (depth 3) against cuda at depth 3, then cuda at depth 1, with SAM;
+    # and a --mesh 2x2 classification at both depths
+    chunks = ["--num-reads-at-once", "200"]
+    no_overlap = ["--no-chunk-overlap"]
+    chunks_sam = compare_devices(tmp, db, "chunks_sam", s1, s2, chunks,
+                                 sam=True)
+    launches["chunks_sam_no_overlap"] = run_mesh_cuda(
+        tmp, db, "chunks_sam_no_overlap", s1, s2, chunks + no_overlap, True,
+        chunks_sam)
+    chunks_plain = compare_devices(tmp, db, "chunks_classify", s1, s2,
+                                   chunks, sam=False)
+    for name, extra in (("chunks_mesh_2x2", []),
+                        ("chunks_mesh_2x2_no_overlap", no_overlap)):
+        launches[name] = run_mesh_cuda(
+            tmp, db, name, s1, s2, chunks + ["--mesh", "2x2"] + extra,
+            False, chunks_plain)
     compare_devices(tmp, db, "just_align_single_end", s1, None,
                     ["--just-align"], sam=True)
     compare_devices(tmp, db, "host_path", s1, s2,
@@ -1034,7 +1070,7 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     check_fused("the main path", launches, fused, expect)
     return launches, fused, cells, dict(
         db=db, r1=os.path.join(tmp, "r1.fq"), r2=os.path.join(tmp, "r2.fq"),
-        g=g, at=at, taxids=taxids, out=out)
+        g=g, at=at, taxids=taxids, out=out, peak=peak)
 
 
 def phase_sam(ctx, tmp: str):
@@ -1170,6 +1206,144 @@ def phase_mesh(ctx, tmp: str, shape: str = "2x2", expect=None):
     return launches, fused, cells
 
 
+def device_busy_share(trace_path: str):
+    """(busy seconds, window seconds) of a torch.profiler chrome trace:
+    the union of the CUDA kernel, memcpy and memset intervals inside the
+    run's "chunk_loop" span (pipeline/run.py: from the first chunk's
+    parse to the last chunk's tail; the DB load and the result files lie
+    outside it).  A str (why not) when the trace holds no device
+    interval or no span."""
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("name") == "chunk_loop"
+             and e.get("cat") == "user_annotation"]
+    device = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy",
+                                        "gpu_memset"))
+    if not spans or not device:
+        return (f"the trace holds {len(device)} CUDA kernel, memcpy or "
+                f"memset intervals and {len(spans)} chunk_loop spans")
+    lo, hi = spans[0]
+    busy, end = 0.0, lo
+    for a, b in device:
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy / 1e6, (hi - lo) / 1e6
+
+
+def phase_pipeline(ctx, tmp: str, chunk_pairs: int, expect=None):
+    """Phase 5's DB and reads in chunks of chunk_pairs pairs, through the
+    CLI on cuda at depth 1 (--no-chunk-overlap) and depth 3 (the
+    default) in turns, five runs each: outputs byte-identical across the
+    runs, >= 99% of pairs classified, every SW launch fused; then one
+    profiled run at each depth for the device's busy share; then the
+    copied eval/comparison.py on the runs' _PerRead.  Returns the fused
+    launches of a default run."""
+    from kslam_tpu_torch.db.taxonomy import TaxonomyDB
+    from kslam_tpu_torch.eval import comparison
+    from kslam_tpu_torch.ops import sw_cuda
+    from kslam_tpu_torch.utils import metrics
+    g, taxids = ctx["g"], ctx["taxids"]
+    n_pairs, n_reads = len(g), 2 * len(g)
+    chunk = ["--num-reads-at-once", str(chunk_pairs)]
+    runs = []
+    for turn, depth in enumerate((1, 3, 3, 1, 1, 3, 3, 1, 1, 3)):
+        metrics.reset()
+        torch.cuda.reset_peak_memory_stats()
+        sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
+        out = os.path.join(tmp, f"pipeline_{turn}_d{depth}")
+        wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
+                       chunk + (["--no-chunk-overlap"] if depth == 1
+                                else []))
+        launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        stages = metrics.summary()
+        loop_s = wall - stages.get("db_load", {}).get("seconds", 0.0)
+        per_read = dict(line.split("\t") for line in
+                        open(out + "_PerRead").read().strip().split("\n"))
+        hits = sum(per_read.get(f"r{i}") == str(taxids[k])
+                   for i, k in enumerate(g.tolist()))
+        sec = {k: v["seconds"] for k, v in stages.items()
+               if isinstance(v, dict) and "seconds" in v}
+        log(f"  depth {depth} (turn {turn}): CLI wall {wall:.4f} s "
+            f"({n_reads / wall * 60:.0f} reads/min), without the DB load "
+            f"{loop_s:.4f} s ({n_reads / loop_s * 60:.0f} reads/min); peak "
+            f"device memory {peak / 2**30:.4f} GiB ({peak} B); pairs "
+            f"classified {hits}/{n_pairs}")
+        log(f"  depth {depth} (turn {turn}) stage seconds {json.dumps(sec)}")
+        if hits < 0.99 * n_pairs:
+            raise AssertionError(f"depth {depth}: only {hits}/{n_pairs} "
+                                 f"pairs classified")
+        check_fused(f"chunk pipeline depth {depth} turn {turn}", launches,
+                    fused, expect)
+        # a quarter of the reads per chunk cannot need more of the card
+        # than phase 5's one chunk of them all, unless something (a
+        # chunk, an earlier run's DB) is held too long
+        if peak > ctx["peak"]:
+            raise AssertionError(f"depth {depth}: peak {peak} B above "
+                                 f"phase 5's one-chunk {ctx['peak']} B")
+        runs.append(dict(depth=depth, out=out, wall=wall, loop_s=loop_s,
+                         peak=peak, hits=hits, fused=fused))
+    files = [read_outputs(r["out"], sam=False) for r in runs]
+    same = all(f == files[0] for f in files[1:])
+    log(f"  XML, _PerRead, _abbreviated byte-identical across the "
+        f"{len(runs)} runs: {same}")
+    if not same:
+        raise AssertionError("the chunk pipeline's outputs differ between "
+                             "depths")
+    for depth in (1, 3):
+        walls = [r["wall"] for r in runs if r["depth"] == depth]
+        loops = [r["loop_s"] for r in runs if r["depth"] == depth]
+        mean = sum(loops) / len(loops)
+        log(f"  depth {depth}: walls {walls} s (mean "
+            f"{sum(walls) / len(walls):.4f} s), without the load {loops} s "
+            f"(mean {mean:.4f} s, {n_reads / mean * 60:.0f} reads/min), "
+            f"peaks {[r['peak'] for r in runs if r['depth'] == depth]} B")
+
+    # one profiled run at each depth: the device's busy share
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for depth in (1, 3):
+        out = os.path.join(tmp, f"pipeline_profiled_d{depth}")
+        trace = os.path.join(tmp, f"pipeline_d{depth}.trace.json")
+        with torch.profiler.profile(activities=acts) as prof:
+            wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
+                           chunk + (["--no-chunk-overlap"] if depth == 1
+                                    else []))
+        prof.export_chrome_trace(trace)
+        got = device_busy_share(trace)
+        if isinstance(got, str):
+            log(f"  depth {depth} busy share: not measured ({got}); "
+                f"profiled wall {wall:.4f} s")
+        else:
+            busy, window = got
+            log(f"  depth {depth} busy share: {busy / window:.4%} (device "
+                f"busy {busy:.6f} s of the {window:.6f} s chunk loop, "
+                f"kernels and copies of all streams, profiled wall "
+                f"{wall:.4f} s; the profiler slows the host)")
+        if read_outputs(out, sam=False) != files[0]:
+            raise AssertionError(f"the profiled depth-{depth} run differs")
+
+    # the copied accuracy harness on the runs' per-read output
+    tax = TaxonomyDB.read_index(os.path.join(ctx["db"], "taxDB"))
+    truth = {f"r{i}": taxids[k] for i, k in enumerate(g.tolist())}
+    ev = comparison.evaluate_results(runs[0]["out"] + "_PerRead", truth, tax)
+    n01, n10, chi = comparison.mcnemar(runs[0]["out"] + "_PerRead",
+                                       runs[1]["out"] + "_PerRead", truth,
+                                       tax)
+    log(f"  eval.comparison: species correct {ev.species_correct} of "
+        f"{ev.num_reads} reads (phase 5's count for this chunking: "
+        f"{runs[0]['hits']}), {ev.num_incorrect} incorrect; McNemar depth "
+        f"1 vs 3: n01={n01} n10={n10} chi2={chi}")
+    if ev.species_correct != runs[0]["hits"] or (n01, n10) != (0, 0):
+        raise AssertionError("eval.comparison disagrees with the run's own "
+                             "count, or the depths differ per read")
+    return runs[1]["fused"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1249,6 +1423,11 @@ def main() -> int:
             f"{args.pairs} pairs")
         mesh_launches, mesh_fused, mesh_cells = phase_mesh(ctx, tmp,
                                                            expect=expect)
+        # 4 chunks at any --pairs, so that the depths can differ
+        chunk_pairs = max(args.pairs // 4, 1)
+        log(f"phase 9 chunk pipeline: {args.pairs} pairs in chunks of "
+            f"{chunk_pairs} pairs, depths 1 and 3 in turns")
+        pipe_fused = phase_pipeline(ctx, tmp, chunk_pairs, expect)
 
     flat, chunked = align["flat"], align["chunked"]
     kernels = {"kernels": [{
@@ -1268,6 +1447,7 @@ def main() -> int:
                              "sam": sam_launches,
                              "flat_window": align_launches,
                              "mesh_2x2_shard_genomes": mesh_fused,
+                             "chunk_pipeline": pipe_fused,
                              **{f"small_{k}": v
                                 for k, v in small_launches.items()}},
         "rectangle_cells_main_path": cells,

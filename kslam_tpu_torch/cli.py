@@ -71,7 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume an interrupted run from its chunk "
                         "checkpoint (cursor sidecar next to the output)")
     p.add_argument("--no-chunk-overlap", action="store_true",
-                   help="chunks always run one after another here")
+                   help="run the chunks one after another, with one "
+                        "chunk's host and device work in flight (default: "
+                        "the next chunk's parse and the last chunk's "
+                        "output overlap a chunk's device work)")
     p.add_argument("--no-prefix-rows", action="store_true",
                    help="no effect: the port's join needs no prefix rows")
     p.add_argument("--mesh", default="",
@@ -124,6 +127,7 @@ def config_from_args(args, argv) -> PipelineConfig:
         device_pipeline=args.device_pipeline,
         mesh_shape=args.mesh,
         genome_sharded=args.shard_genomes,
+        chunk_overlap=not args.no_chunk_overlap,
     )
 
 

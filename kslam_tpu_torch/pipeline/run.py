@@ -1,10 +1,10 @@
 """End-to-end run: metagenomicAnalysis_Low_Mem rebuilt on torch
 (SLAM.h:159-268).
 
-Counterpart of kslam_tpu/pipeline/run.py, with a sequential chunk loop.
-Each chunk may first lose its host reads (--host-screen) and have its
-low-complexity reads counted (--low-complexity-cutoff), then runs one of
-two paths on the run's device:
+Counterpart of kslam_tpu/pipeline/run.py.  Each chunk may first lose its
+host reads (--host-screen) and have its low-complexity reads counted
+(--low-complexity-cutoff), then runs one of two paths on the run's
+device:
 
   * the device pipeline (--device-pipeline on, and auto): device batches
     of config.read_batch reads through phase A (or, with --mesh DxS, one
@@ -18,17 +18,22 @@ two paths on the run's device:
     (exact join, flat-window SW on the device), then host pairing,
     screens and pseudo-assembly over Python objects (pipeline/pairing.py).
 
-SAM lines are written per chunk; the per-read TSV, the combined XML and
-the abbreviated TSV at the end (not with --just-align).  --resume
-continues an interrupted run from its chunk checkpoint
-(pipeline/checkpoint.py).
+On the device pipeline, ChunkPipeline overlaps the next chunk's parse
+and packing and the last chunk's host tail with a chunk's device work
+(depth 3; --no-chunk-overlap runs one chunk at a time, depth 1).  SAM
+lines are written per chunk, in chunk order; the per-read TSV, the
+combined XML and the abbreviated TSV at the end (not with
+--just-align).  --resume continues an interrupted run from its chunk
+checkpoint (pipeline/checkpoint.py).
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import os
 import sys
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -72,25 +77,26 @@ def apply_host_screen(batch: ReadBatch, table, kind: str) -> ReadBatch:
         paired=batch.paired)
 
 
-def process_chunk(batch: ReadBatch, db: align.DeviceDB,
-                  config: PipelineConfig, entry_taxids,
-                  lca_tables, mesh=None, sharded_db=None):
-    """One chunk through phase A (per device batch), the chunk-wide
-    insert model and phase B; returns the chunk's (PhaseBOut, overlap
-    columns) of device_path.run_chunk_phase_b.
+class ChunkLayout(NamedTuple):
+    """How a chunk splits into device batches: reads padded to l bases,
+    `unit` pairs (paired) or reads per batch, R2 rows from mid_local."""
+    l: int
+    unit: int
+    num_batches: int
+    mid_local: int
+    rows: int
 
-    mesh/sharded_db (parallel/dist.py): phase A runs as one sharded step
-    over a (data, index) mesh instead: the chunk splits into one
-    sub-batch per data row (db is not read), and each row's output is
-    consumed by the same chunk-wide phase B as a device batch, so the
-    results are those of one device."""
+
+def chunk_layout(batch: ReadBatch, config: PipelineConfig,
+                 mesh=None) -> ChunkLayout:
+    """The device batches of a chunk: config.read_batch reads each, or
+    one sub-batch per data row of a mesh."""
     paired = batch.paired
     # pad reads to the chunk's real maximum (rounded to 8), as the
     # reference package does
     l_data = int(batch.lengths.max()) if batch.num_reads else 0
     l = min(config.max_read_len, max(-(-l_data // 8) * 8, 40))
-    chunk_mid = batch.midpoint if paired else 0
-    n_units = chunk_mid if paired else batch.num_reads   # pairs or reads
+    n_units = batch.midpoint if paired else batch.num_reads  # pairs/reads
     if mesh is not None:
         num_batches = mesh.shape["data"]
         unit = max(-(-n_units // num_batches), 1)
@@ -99,55 +105,102 @@ def process_chunk(batch: ReadBatch, db: align.DeviceDB,
         if n_units <= unit:
             unit = max(n_units, 1)
         num_batches = -(-n_units // unit) if n_units else 1
-    mid_local = unit if paired else 0
-    rows = unit * (2 if paired else 1)
+    return ChunkLayout(l, unit, num_batches, unit if paired else 0,
+                       unit * (2 if paired else 1))
 
-    def batch_arrays(i):
-        lo = i * unit
-        k = max(min(unit, n_units - lo), 0)
-        bases = np.zeros((rows, l), dtype=np.uint8)
-        lengths = np.zeros(rows, dtype=np.int32)
-        bl = min(batch.bases.shape[1], l)
-        bases[:k, :bl] = batch.bases[lo:lo + k, :bl]
-        lengths[:k] = batch.lengths[lo:lo + k]
-        if paired:
-            bases[mid_local:mid_local + k, :bl] = \
-                batch.bases[chunk_mid + lo:chunk_mid + lo + k, :bl]
-            lengths[mid_local:mid_local + k] = \
-                batch.lengths[chunk_mid + lo:chunk_mid + lo + k]
-        return bases, lengths
 
+def _batch_arrays(batch: ReadBatch, lay: ChunkLayout, i: int):
+    """Device batch i of a chunk, padded: (ASCII bases u8 [rows, l],
+    lengths int32 [rows]), R1 rows first, R2 rows from lay.mid_local."""
+    chunk_mid = batch.midpoint if batch.paired else 0
+    n_units = chunk_mid if batch.paired else batch.num_reads
+    lo = i * lay.unit
+    k = max(min(lay.unit, n_units - lo), 0)
+    bases = np.zeros((lay.rows, lay.l), dtype=np.uint8)
+    lengths = np.zeros(lay.rows, dtype=np.int32)
+    bl = min(batch.bases.shape[1], lay.l)
+    bases[:k, :bl] = batch.bases[lo:lo + k, :bl]
+    lengths[:k] = batch.lengths[lo:lo + k]
+    if batch.paired:
+        m = lay.mid_local
+        bases[m:m + k, :bl] = batch.bases[chunk_mid + lo:chunk_mid + lo + k,
+                                          :bl]
+        lengths[m:m + k] = batch.lengths[chunk_mid + lo:chunk_mid + lo + k]
+    return bases, lengths
+
+
+def pack_device_batch(batch: ReadBatch, lay: ChunkLayout, i: int):
+    """Device batch i padded and 2-bit packed: (packed, nbits, kbits,
+    lengths) of encode.pack_reads_np."""
+    bases, lengths = _batch_arrays(batch, lay, i)
+    return (*encode.pack_reads_np(bases), lengths)
+
+
+def pack_chunk(batch: ReadBatch, config: PipelineConfig, mesh=None):
+    """Every device batch of a chunk, packed as process_chunk packs them:
+    one (packed, nbits, kbits, lengths) per device batch, or one for all
+    the data rows of a mesh."""
+    lay = chunk_layout(batch, config, mesh)
+    if mesh is None:
+        return [pack_device_batch(batch, lay, i)
+                for i in range(lay.num_batches)]
+    parts = [_batch_arrays(batch, lay, i) for i in range(lay.num_batches)]
+    return [(*encode.pack_reads_np(np.concatenate([b for b, _ in parts])),
+             np.concatenate([le for _, le in parts]))]
+
+
+def process_chunk(batch: ReadBatch, db: align.DeviceDB,
+                  config: PipelineConfig, entry_taxids,
+                  lca_tables, mesh=None, sharded_db=None, packed=None):
+    """One chunk through phase A (per device batch), the chunk-wide
+    insert model and phase B; returns the chunk's (PhaseBOut, overlap
+    columns) of device_path.run_chunk_phase_b.
+
+    mesh/sharded_db (parallel/dist.py): phase A runs as one sharded step
+    over a (data, index) mesh instead: the chunk splits into one
+    sub-batch per data row (db is not read), and each row's output is
+    consumed by the same chunk-wide phase B as a device batch, so the
+    results are those of one device.
+
+    packed: the chunk's device batches from pack_chunk (the pipeline's
+    reader packs them ahead); None packs each batch here, just before
+    its phase A."""
+    paired = batch.paired
+    lay = chunk_layout(batch, config, mesh)
+    chunk_mid = batch.midpoint if paired else 0
     p = config.sw
     if mesh is not None:
         step = dist.make_sharded_phase_a(
             mesh, paired=paired, match_s=p.match, mismatch=p.mismatch,
-            gap_open=p.gap_open, gap_extend=p.gap_extend, window_len=l,
+            gap_open=p.gap_open, gap_extend=p.gap_extend, window_len=lay.l,
             score_threshold=config.score_threshold,
             genome_sharded=config.genome_sharded)
-        with metrics.stage("pack_reads"):
-            parts = [batch_arrays(i) for i in range(num_batches)]
-            packed, nbits, kbits = encode.pack_reads_np(
-                np.concatenate([b for b, _ in parts]))
-            lengths = np.concatenate([le for _, le in parts])
-        with metrics.stage("phase_a", items=rows * num_batches):
+        if packed is None:
+            with metrics.stage("pack_reads"):
+                packed = pack_chunk(batch, config, mesh)
+        (codes, nbits, kbits, lengths), = packed
+        with metrics.stage("phase_a", items=lay.rows * lay.num_batches):
             a_list = dist.split_phase_a(
-                step(packed, lengths, mid_local, sharded_db, nbits=nbits,
+                step(codes, lengths, lay.mid_local, sharded_db, nbits=nbits,
                      kbits=kbits), mesh)
     else:
         dev = db.kmers.device
         a_list = []
-        for i in range(num_batches):
-            with metrics.stage("pack_reads"):
-                bases, lengths = batch_arrays(i)
-                packed, nbits, kbits = encode.pack_reads_np(bases)
-            with metrics.stage("phase_a", items=rows):
+        for i in range(lay.num_batches):
+            if packed is None:
+                with metrics.stage("pack_reads"):
+                    codes, nbits, kbits, lengths = pack_device_batch(
+                        batch, lay, i)
+            else:
+                codes, nbits, kbits, lengths = packed[i]
+            with metrics.stage("phase_a", items=lay.rows):
                 a_list.append(device_path.phase_a(
-                    torch.as_tensor(packed).to(dev),
-                    torch.as_tensor(lengths).to(dev), mid_local,
+                    torch.as_tensor(codes).to(dev),
+                    torch.as_tensor(lengths).to(dev), lay.mid_local,
                     db.kmers, db.idx_pack, db.genome_chunks,
                     db.entry_offsets, match_s=p.match, mismatch=p.mismatch,
                     gap_open=p.gap_open, gap_extend=p.gap_extend,
-                    window_len=l, score_threshold=config.score_threshold,
+                    window_len=lay.l, score_threshold=config.score_threshold,
                     paired=paired, nbits=torch.as_tensor(nbits).to(dev),
                     kbits=torch.as_tensor(kbits).to(dev)))
 
@@ -165,7 +218,7 @@ def process_chunk(batch: ReadBatch, db: align.DeviceDB,
         log(f"max allowed insert size {max_insert}")
     with metrics.stage("phase_b"):
         return device_path.run_chunk_phase_b(
-            a_list, mid_local, chunk_mid, unit,
+            a_list, lay.mid_local, chunk_mid, lay.unit,
             min(max_insert, 2**32 - 1), entry_taxids, lca_tables,
             fraction=config.score_fraction_threshold,
             perform_pseudo_assembly=config.perform_pseudo_assembly,
@@ -188,6 +241,164 @@ def device_tables(gindex: GenbankIndex, taxdb: TaxonomyDB, device):
     besides the chunk's own columns."""
     return (torch.as_tensor(gindex.taxonomy_ids.astype(np.int64)).to(device),
             lca_ops.build_device_tables(taxdb, device))
+
+
+class ChunkPipeline:
+    """Software pipeline over chunks: with depth >= 2, three chunks move
+    at once, each stage on a thread of its own.
+
+      reader (a worker thread; read()): the FASTQ parse, host screen and
+          low-complexity flagging of chunk i+1, and its padding and 2-bit
+          packing into device batches (pack_chunk);
+      calling thread (feed()): process_chunk of chunk i (phase A per
+          device batch or the mesh step, the insert model, phase B) and
+          its device-to-host fetch (the classification columns, or the
+          object model for SAM and --just-align);
+      tail (a worker thread): `tail(meta, result)` of chunk i-1 (cigars
+          and SAM text, taxonomy, the checkpoint), strictly in chunk
+          order; after a tail fails, no later tail runs.
+
+    At most `depth` chunks are alive, from the start of their parse to
+    the end of their tail: feed() starts the next chunk's read only once
+    at most depth - 2 tails are pending, and a chunk is dropped when its
+    tail returns.  Results reach the caller through `tail` only.  Chunks
+    meet only at the final combine, so the results are those of depth 1
+    (--no-chunk-overlap), which runs the same stages one after another
+    on the calling thread and starts no thread.  Stages that launch
+    device work (the host screen, the flagging) share the card's stream
+    with the calling thread.  An error on any thread reaches the caller:
+    on the way out the pipeline finishes the tails of the chunks already
+    fed, joins both threads, and raises the first error in chunk order.
+
+    Left out of kslam_tpu's ChunkPipeline: the adaptive transfer caps
+    (observe_cap and its hints), the split phase B (enqueue, fetch,
+    finish) and the compact classification transfers.  They size static
+    TPU shapes and order transfers on the TPU's in-order queue; the
+    port's shapes are exact and phase A syncs the host, so its overlap
+    comes from moving the host-only stages off the thread that drives
+    the card.
+    """
+
+    def __init__(self, config: PipelineConfig, db, entry_taxids,
+                 lca_tables, mesh=None, sharded_db=None, depth: int = 3,
+                 *, tail):
+        self.config = config
+        self.db = db
+        self.entry_taxids = entry_taxids
+        self.lca_tables = lca_tables
+        self.mesh = mesh
+        self.sharded_db = sharded_db
+        self.depth = max(1, depth)
+        self.tail = tail
+        self._reader = self._tails = None
+        self._source = None          # read()'s (chunks, prepare)
+        self._ahead = None           # the next chunk's read (a future)
+        self._pending: collections.deque = collections.deque()  # tails
+        self._tail_failed = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+        for fut in self._pending:
+            err = fut.exception()
+            if err is not None and err is not exc:
+                raise err
+        return False
+
+    def read(self, chunks, prepare):
+        """(batch, packed) for each ReadBatch of `chunks`, after
+        `prepare` (host screen, flagging); at depth >= 2 made one chunk
+        ahead on the reader thread, with packed = pack_chunk(batch); at
+        depth 1 made here, with packed None (process_chunk packs)."""
+        if self.depth == 1:
+            while True:
+                with metrics.stage("fastq_parse"):
+                    batch = next(chunks, None)
+                if batch is None:
+                    return
+                yield prepare(batch), None
+        self._reader = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="kslam-chunk-reader")
+        self._source = chunks, prepare
+        while True:
+            if self._ahead is None:      # no feed() since the last chunk
+                self._read_ahead()
+            item = self._ahead.result()
+            self._ahead = None
+            if item is None:
+                return
+            yield item
+
+    def _read_ahead(self) -> None:
+        self._ahead = self._reader.submit(self._read_one, *self._source)
+
+    def _read_one(self, chunks, prepare):
+        with metrics.stage("fastq_parse"):
+            batch = next(chunks, None)
+        if batch is None:
+            return None
+        batch = prepare(batch)
+        with metrics.stage("pack_reads"):
+            return batch, pack_chunk(batch, self.config, self.mesh)
+
+    def feed(self, batch: ReadBatch, meta: dict, packed=None) -> None:
+        """Start the next chunk's read, run this chunk's device work and
+        fetch here, and hand its tail on.  meta["want_objects"]: fetch
+        the object model (chunk_objects) rather than the classification
+        columns."""
+        if self.depth > 1:
+            self._wait(self.depth - 2)
+            self._read_ahead()
+        b, ov_cols = process_chunk(batch, self.db, self.config,
+                                   self.entry_taxids, self.lca_tables,
+                                   mesh=self.mesh,
+                                   sharded_db=self.sharded_db,
+                                   packed=packed)
+        if meta.get("want_objects", True):
+            result = chunk_objects(b, ov_cols, batch)
+        else:
+            with metrics.stage("result_fetch"):
+                result = classify.fetch_classify_arrays(b)
+        del b, ov_cols          # the chunk's device buffers
+        if self.depth == 1:
+            self.tail(meta, result)
+            return
+        if self._tails is None:
+            self._tails = concurrent.futures.ThreadPoolExecutor(
+                1, thread_name_prefix="kslam-chunk-tail")
+        self._pending.append(self._tails.submit(self._tail, [meta, result]))
+
+    def _tail(self, job):
+        # emptied here, so that the chunk is freed when this returns,
+        # before its future completes and feed() reads ahead again
+        meta, result = job
+        job.clear()
+        try:
+            if not self._tail_failed:
+                self.tail(meta, result)
+        except BaseException:
+            self._tail_failed = True
+            raise
+
+    def _wait(self, n: int) -> None:
+        """Wait until at most n tails are pending, raising the first
+        tail's error."""
+        while len(self._pending) > n:
+            self._pending[0].result()
+            self._pending.popleft()
+
+    def drain(self) -> None:
+        """Wait for the tails of every chunk fed."""
+        self._wait(0)
+
+    def close(self) -> None:
+        """Let the read and the tails already handed on finish, and join
+        both threads."""
+        for pool in (self._reader, self._tails):
+            if pool is not None:
+                pool.shutdown(wait=True)
 
 
 def process_batch(batch: ReadBatch, db: align.DeviceDB,
@@ -345,6 +556,27 @@ def metagenomic_analysis(r1_path: str, r2_path: Optional[str],
         if not config.just_align:
             log(f"Processed\t{reads_so_far}\t reads")
 
+    def prepare(batch):
+        """A chunk's host screen and low-complexity flagging."""
+        if host_table is not None:
+            with metrics.stage("host_screen"):
+                batch = apply_host_screen(batch, host_table, host_kind)
+        if config.low_complexity_cutoff:
+            lc = screen_ops.label_low_complexity_reads(
+                batch, config.low_complexity_cutoff, device)
+            log(f"Low complexity screening flagged {int(lc.sum())} reads")
+        return batch
+
+    def tail(meta, result):
+        columnar = not meta["want_objects"]
+        handle_chunk(sam_file, meta["batch"], None if columnar else result,
+                     result if columnar else None, meta["reads"])
+
+    # chunk software pipeline (ChunkPipeline): the next chunk's parse and
+    # packing and the last chunk's host tail run beside this chunk's
+    # device work (results unchanged: chunks only meet at the final
+    # combine); the host-object path runs its chunks one after another
+    depth = 3 if use_device and config.chunk_overlap else 1
     sam_file = open(sam_path, "a" if resumed else "w") if sam_path else None
     try:
         if sam_file and not resumed:
@@ -354,36 +586,25 @@ def metagenomic_analysis(r1_path: str, r2_path: Optional[str],
                                      config.num_reads,
                                      pad_len=config.max_read_len,
                                      skip_reads=num_reads)
-        while True:
-            with metrics.stage("fastq_parse"):
-                batch = next(chunks, None)
-            if batch is None:
-                break
-            if host_table is not None:
-                with metrics.stage("host_screen"):
-                    batch = apply_host_screen(batch, host_table, host_kind)
-            if config.low_complexity_cutoff:
-                lc = screen_ops.label_low_complexity_reads(
-                    batch, config.low_complexity_cutoff, device)
-                log(f"Low complexity screening flagged {int(lc.sum())} "
-                    f"reads")
-            num_reads += batch.midpoint if batch.paired else batch.num_reads
-            if not use_device:
-                handle_chunk(sam_file, batch,
-                             process_batch(batch, db, config), None,
-                             num_reads)
-                continue
-            b, ov_cols = process_chunk(batch, db, config, entry_taxids,
-                                       lca_tables, mesh=mesh,
-                                       sharded_db=sharded_db)
-            if sam_file or config.just_align:
-                handle_chunk(sam_file, batch,
-                             chunk_objects(b, ov_cols, batch), None,
-                             num_reads)
-            else:
-                with metrics.stage("taxonomy"):
-                    arrays = classify.fetch_classify_arrays(b)
-                handle_chunk(sam_file, batch, None, arrays, num_reads)
+        # the span a profiler reads the device's busy share over
+        with torch.profiler.record_function("chunk_loop"), \
+                ChunkPipeline(config, db, entry_taxids, lca_tables,
+                              mesh=mesh, sharded_db=sharded_db,
+                              depth=depth, tail=tail) as pipe:
+            for batch, packed in pipe.read(chunks, prepare):
+                num_reads += batch.midpoint if batch.paired \
+                    else batch.num_reads
+                if not use_device:
+                    handle_chunk(sam_file, batch,
+                                 process_batch(batch, db, config), None,
+                                 num_reads)
+                    continue
+                # the columnar classification needs no per-pair objects
+                pipe.feed(batch, dict(
+                    batch=batch, reads=num_reads,
+                    want_objects=bool(sam_file) or config.just_align),
+                    packed)
+            pipe.drain()
     finally:
         if sam_file:
             sam_file.close()

@@ -4,15 +4,17 @@ fused forward + reverse kernel: odd shapes, n_valid, every row-count
 instantiation, wide scores, the chunked windows of the device pipeline),
 the host screen on CUDA against the CPU, the sharded phase
 A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
-against the CPU, and the CUDA CLI runs (classification and SAM) against
-the CPU ones.  They import neither jax nor kslam_tpu, so they run
-on the card's machine with
+against the CPU, and the CUDA CLI runs (classification and SAM, and
+over four chunks at both chunk-pipeline depths) against the CPU ones.
+They import neither jax nor kslam_tpu, so they run on the card's
+machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 and skip on a machine without a card."""
 
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -383,6 +385,37 @@ def test_sam_cli_cuda_matches_cpu(cuda_device, tmp_path, flags):
                              if not line.startswith("@PG")])
     assert outs["cuda"] == outs["cpu"]
     assert len(outs["cuda"][3]) > 400
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags,sam", [([], False), ([], True),
+                                       (["--mesh", "2x2"], False)],
+                         ids=["classify", "sam", "mesh_2x2"])
+def test_chunk_pipeline_cuda_matches_depth1_and_cpu(cuda_device, tmp_path,
+                                                    flags, sam):
+    """Four chunks of 50 pairs: the pipelined cuda run (depth 3) writes
+    byte for byte what the --no-chunk-overlap cuda run and the cpu run
+    write, and leaves no worker thread."""
+    _small_db(tmp_path, np.random.default_rng(7))
+    outs = {}
+    for name, device, extra in (("cpu", "cpu", []), ("d1", "cuda",
+                                ["--no-chunk-overlap"]),
+                                ("d3", "cuda", [])):
+        out = tmp_path / f"out_{name}"
+        args = ["--db", str(tmp_path), "--output-file", str(out),
+                "--device", device, "--num-reads-at-once", "50"] + flags \
+            + extra + (["--sam-file", str(out) + ".sam"] if sam else [])
+        assert cli.main(args + [str(tmp_path / "r1.fq"),
+                                str(tmp_path / "r2.fq")]) == 0
+        outs[name] = [open(str(out) + s).read()
+                      for s in ("", "_PerRead", "_abbreviated")]
+        if sam:
+            outs[name].append([line for line in open(str(out) + ".sam")
+                               if not line.startswith("@PG")])
+    assert outs["d3"] == outs["d1"] == outs["cpu"]
+    assert outs["d3"][1]
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("kslam-chunk")]
 
 
 def _leaves(x):

@@ -91,6 +91,8 @@ COPIES = [
     ("parallel/multihost", "parallel/multihost", (), (),
      ("strided_chunks", "concat_sam_parts")),
     ("eval/realistic", "eval/realistic", (), (), None),
+    ("eval/comparison", "eval/comparison", (), (), None),
+    ("golden/overlaps", "golden/overlaps", (), (), None),
 ]
 
 
