@@ -50,6 +50,11 @@ Phases (each prints its own line; any failure exits non-zero):
      bench (16 genomes x 100 Mbp, ~1e8 stride-16 index k-mers) and
      262,144 planted 150 bp reads (131,072 pairs, 1% mutations) through
      the CLI on cuda; >= 99% of the pairs must get their genome's taxid.
+     Before the run, the DB's bucket table (2^26 rows x 64 B) is built
+     once by the port's KmerIndex.bucket_table into the DB directory's
+     cache, timed, and loaded back as later runs do (index, memory map,
+     copy), timed; every CLI run here and below loads that cache and
+     joins with the bucket table and its exact tier 2.
      Every SW launch must be a fused sw_align launch (4 at the default
      size, one per batch of 32,768 candidates); prints the launches and
      rectangle cells on this path and the cells per second over the
@@ -83,6 +88,17 @@ Phases (each prints its own line; any failure exits non-zero):
      the planted truth: its species-correct count must equal the run's
      own count, and McNemar between depths 1 and 3 must find 0
      discordant reads.
+ 10. join backends: phase 5's DB and the k-mers of all its reads at
+     once, through ops/match.join_bounds with (a) the exact search
+     (searchsorted_both), (b) the bucket table + tier 2, (c) the prefix
+     window + tier 2, timed with CUDA events in turns (a, b, c, c, b, a,
+     three times): ms, peak device memory over the call, table bytes,
+     the share of kept queries sent to tier 2, the bytes bound, and the
+     device time by op of one call of each under torch.profiler; (b)
+     and (c) must give (a)'s (lo, hi) on every kept query.  Then one
+     --no-prefix-rows CLI run on cuda (the prefix window on the path),
+     byte-identical to phase 5's.  Its numbers are printed as one
+     {"join": ...} JSON line.
 Phase 4 also runs, on cuda, --mesh 2x2 (classification), --mesh 1x4
 --shard-genomes --sam-file, and two processes of --coordinator
 localhost:PORT --num-processes 2 sharing the card; and three chunks of
@@ -733,6 +749,31 @@ def build_db(root: str, genomes, taxids) -> float:
     return time.perf_counter() - t0
 
 
+def bucket_table_seconds(db: str) -> dict:
+    """Builds the DB's bucket table once with the port's
+    KmerIndex.bucket_table (written to the DB directory's cache, as a
+    user's first run does), then loads it as a later run does: the index,
+    the memory-mapped cache and the copy DeviceDB.from_index makes."""
+    from kslam_tpu_torch.db.kmer_index import KmerIndex
+    t0 = time.perf_counter()
+    kidx = KmerIndex.load(db)
+    t1 = time.perf_counter()
+    tbl, bits = kidx.bucket_table()
+    t2 = time.perf_counter()
+    if not os.path.exists(os.path.join(db, "bucket_table.npy")):
+        raise AssertionError("the bucket table was not cached")
+    del kidx, tbl
+    t3 = time.perf_counter()
+    cached, _ = KmerIndex.load(db).bucket_table()
+    copy = np.array(cached)
+    t4 = time.perf_counter()
+    if not isinstance(cached, np.memmap):
+        raise AssertionError("the second load did not read the cache")
+    return dict(bits=bits, rows=copy.shape[0], bytes=copy.nbytes,
+                index_load_s=t1 - t0, build_s=t2 - t1,
+                cached_load_s=t4 - t3)
+
+
 def run_cli(db: str, out: str, r1: str, r2, device: str,
             flags=()) -> float:
     """One port CLI run (r2 None: single-end); returns its wall seconds."""
@@ -1034,6 +1075,12 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     del r1, r2
     log(f"  DB {n_genomes} x {glen / 1e6:.1f} Mbp: genomes {gen_s:.1f} s, "
         f"host DB build + save {build_s:.1f} s")
+    table = bucket_table_seconds(db)
+    log(f"  bucket table {table['rows']} rows x 64 B = "
+        f"{table['bytes']} B: first build + save {table['build_s']:.4f} s "
+        f"(index load {table['index_load_s']:.4f} s before it); cached "
+        f"load (index load, memory map, copy) {table['cached_load_s']:.4f} "
+        f"s; the CLI runs below load the cache")
 
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -1070,7 +1117,8 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     check_fused("the main path", launches, fused, expect)
     return launches, fused, cells, dict(
         db=db, r1=os.path.join(tmp, "r1.fq"), r2=os.path.join(tmp, "r2.fq"),
-        g=g, at=at, taxids=taxids, out=out, peak=peak)
+        g=g, at=at, taxids=taxids, out=out, peak=peak, table=table,
+        stages=stages)
 
 
 def phase_sam(ctx, tmp: str):
@@ -1344,6 +1392,172 @@ def phase_pipeline(ctx, tmp: str, chunk_pairs: int, expect=None):
     return runs[1]["fused"]
 
 
+# one H100's HBM rate (the data sheet's, SXM part), bytes/s
+HBM_RATE = 3.35e12
+
+
+def phase_join(ctx, tmp: str, dev):
+    """The join's three backends on phase 5's DB and the k-mers of all
+    its reads at once, timed with CUDA events in turns: (a) the exact
+    search (searchsorted_both, the join without a table), (b) the bucket
+    table + tier 2, (c) the prefix window + tier 2, each through
+    ops/match.join_bounds as expand_seeds calls it.  (lo, hi) of (b) and
+    (c) must equal (a)'s on every query the path keeps (q_ok).  Then one
+    --no-prefix-rows CLI run on the card, byte-identical to phase 5's.
+    Returns the JSON-able numbers."""
+    from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
+    from kslam_tpu_torch.io.fastq import stream_read_batches
+    from kslam_tpu_torch.ops import encode, join, kmers, match, sw_cuda
+    from kslam_tpu_torch.utils import metrics
+    kidx = KmerIndex.load(ctx["db"])
+    keys, _, pstart, bits, window = join_columns(kidx)
+    tbl, bbits = kidx.bucket_table()
+    m = len(kidx)
+    del kidx
+    d_keys = torch.as_tensor(keys).to(dev)
+    tables = {
+        "searchsorted_both": {},
+        "bucket": dict(idx_bucket=torch.from_numpy(np.array(tbl)).to(dev),
+                       bucket_bits=bbits),
+        "prefix_window": dict(idx_pstart=torch.as_tensor(pstart).to(dev),
+                              prefix_bits=bits, window=window)}
+    table_bytes = {"searchsorted_both": 0, "bucket": int(tbl.nbytes),
+                   "prefix_window": int(pstart.nbytes)}
+    del tbl, keys
+    n_pairs = len(ctx["g"])
+    batch = next(stream_read_batches(ctx["r1"], ctx["r2"], n_pairs,
+                                     pad_len=160))
+    l = min(160, -(-int(batch.lengths.max()) // 8) * 8)
+    bases = torch.as_tensor(np.ascontiguousarray(batch.bases[:, :l])).to(dev)
+    lengths = torch.as_tensor(batch.lengths).to(dev)
+    km, _, _, valid = kmers.read_kmers_from_codes(encode.kmer_codes(bases),
+                                                  lengths)
+    q = km.reshape(-1)
+    q_ok = valid.reshape(-1) & (q != kmers.FLIP)
+    n_q, n_ok = q.shape[0], int(q_ok.sum())
+    del bases, km, valid
+    log(f"  index {m} keys (padded {d_keys.shape[0]}), prefix table "
+        f"{bits} bits, window {window}; bucket table {bbits} bits; "
+        f"{batch.num_reads} reads at once: {n_q} query positions, {n_ok} "
+        f"kept (valid, not the zero k-mer)")
+
+    def call(name):
+        return match.join_bounds(q, q_ok, d_keys, **tables[name])
+
+    want = call("searchsorted_both")
+    escaped = {"searchsorted_both": 0}
+    for name in ("bucket", "prefix_window"):
+        lo, hi = call(name)
+        same = all(torch.equal(torch.where(q_ok, a, 0),
+                               torch.where(q_ok, b, 0))
+                   for a, b in zip((lo, hi), want))
+        del lo, hi
+        t = tables[name]
+        unc = join.lookup_bucket(t["idx_bucket"], q, bbits)[2] \
+            if name == "bucket" else join.lookup_prefix_window(
+                d_keys, t["idx_pstart"], q, bits, window)[2]
+        escaped[name] = int((q_ok & (unc > 0)).sum())
+        del unc
+        log(f"  {name}: (lo, hi) equal to searchsorted_both's on the "
+            f"{n_ok} kept queries: {same}; {escaped[name]} kept queries "
+            f"to tier 2 ({escaped[name] / n_ok:.6%})")
+        if not same:
+            raise AssertionError(f"{name}: the join differs from the "
+                                 f"exact search")
+    del want
+    # the least bytes each backend moves: the queries, the table rows it
+    # reads (the exact search: the index once), the two int64 bounds
+    moved = {"searchsorted_both": n_q * 24 + m * 8,
+             "bucket": n_q * (24 + 64),
+             "prefix_window": n_q * (24 + 8 + 2 * window * 8)}
+    times = {k: [] for k in tables}
+    peaks = {k: 0 for k in tables}
+    order = ["searchsorted_both", "bucket", "prefix_window"]
+    for name in (order + order[::-1]) * 3:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call(name)
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end))
+        peaks[name] = max(peaks[name],
+                          torch.cuda.max_memory_allocated() - base)
+        del out
+    # one call of each backend under torch.profiler: device time by op
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    by_op = {}
+    for name in order:
+        with torch.profiler.profile(activities=acts) as prof:
+            out = call(name)
+            torch.cuda.synchronize()
+        del out
+        ops = []
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0)
+            if t > 0:
+                ops.append((e.key, e.count, t / 1e3))
+        ops.sort(key=lambda x: -x[2])
+        by_op[name] = ops[:8]
+        total = sum(x[2] for x in ops)
+        if not ops:
+            log(f"  {name} device time by op: not measured (the trace "
+                f"holds no device time)")
+            continue
+        log(f"  {name} device time by op (one profiled call, "
+            f"{total:.4f} ms in all): " + "; ".join(
+                f"{k} x{c} {ms:.4f} ms" for k, c, ms in ops[:8]))
+    result = {}
+    for name in order:
+        ms = sum(times[name]) / len(times[name])
+        result[name] = dict(
+            ms=ms, ms_turns=times[name], peak_bytes=peaks[name],
+            table_bytes=table_bytes[name], queries=n_q, kept=n_ok,
+            to_tier2=escaped[name], to_tier2_share=escaped[name] / n_ok,
+            bytes_bound_ms=moved[name] / HBM_RATE * 1e3,
+            top_ops_ms=by_op[name])
+        log(f"  {name}: {ms:.4f} ms mean of {len(times[name])} in turns "
+            f"{[round(t, 4) for t in times[name]]}; peak over the call "
+            f"{peaks[name]} B above the {table_bytes[name]} B table; "
+            f"bytes bound {result[name]['bytes_bound_ms']:.4f} ms")
+    del tables, d_keys, q, q_ok
+
+    # --no-prefix-rows on the card: the prefix window and tier 2 on the
+    # CLI path, no bucket table
+    metrics.reset()
+    torch.cuda.reset_peak_memory_stats()
+    sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
+    out = os.path.join(tmp, "real_no_prefix_rows")
+    wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], dev.type,
+                   ["--no-prefix-rows"])
+    launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    stages = metrics.summary()
+    same = read_outputs(out, sam=False) == read_outputs(ctx["out"],
+                                                         sam=False)
+    seed = stages.get("phase_a_seed", {}).get("seconds", 0.0)
+    log(f"  --no-prefix-rows CLI run: wall {wall:.4f} s, phase_a_seed "
+        f"{seed:.4f} s (phase 5, bucket join: "
+        f"{ctx['stages'].get('phase_a_seed', {}).get('seconds', 0.0):.4f}"
+        f" s), peak device memory {peak} B (phase 5: {ctx['peak']} B); "
+        f"XML, _PerRead, _abbreviated byte-identical to phase 5: {same}")
+    log(f"  stages: {json.dumps(stages)}")
+    if not same:
+        raise AssertionError("the --no-prefix-rows run differs from "
+                             "phase 5")
+    check_fused("the --no-prefix-rows path", launches, fused)
+    result["no_prefix_rows_cli"] = dict(wall_s=wall, phase_a_seed_s=seed,
+                                        peak_bytes=peak)
+    result["table_build"] = ctx["table"]
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1428,6 +1642,10 @@ def main() -> int:
         log(f"phase 9 chunk pipeline: {args.pairs} pairs in chunks of "
             f"{chunk_pairs} pairs, depths 1 and 3 in turns")
         pipe_fused = phase_pipeline(ctx, tmp, chunk_pairs, expect)
+        log(f"phase 10 join backends: phase 5's DB and its "
+            f"{2 * args.pairs} reads' k-mers at once")
+        join_numbers = phase_join(ctx, tmp, dev)
+        log(f"  join: {json.dumps({'join': join_numbers})}")
 
     flat, chunked = align["flat"], align["chunked"]
     kernels = {"kernels": [{

@@ -76,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "the next chunk's parse and the last chunk's "
                         "output overlap a chunk's device work)")
     p.add_argument("--no-prefix-rows", action="store_true",
-                   help="no effect: the port's join needs no prefix rows")
+                   help="skip the 2x join-row index copy in HBM (slower "
+                        "join, more headroom for huge databases)")
     p.add_argument("--mesh", default="",
                    help="DATAxINDEX device mesh, e.g. 2x4: shard reads "
                         "over the data axis and the k-mer index by range "
@@ -128,6 +129,7 @@ def config_from_args(args, argv) -> PipelineConfig:
         mesh_shape=args.mesh,
         genome_sharded=args.shard_genomes,
         chunk_overlap=not args.no_chunk_overlap,
+        prefix_rows=not args.no_prefix_rows,
     )
 
 

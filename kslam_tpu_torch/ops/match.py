@@ -3,18 +3,18 @@
 Replaces the reference's union-sort + pileup scan (SLAM.h:63-66,
 Overlap.h:153-295) with:
 
-  1. an exact searchsorted of every read k-mer key against the sorted
-     index keys (both sides, one join for any pileup length),
+  1. a join of every read k-mer key against the sorted index keys
+     (ops/join.py: the bucket table, the prefix window or the exact
+     search, in the reference package's order), whose escaped queries
+     an exact tier 2 resolves, so the bounds are exact for any pileup,
   2. pair expansion (read k-mer x index slot), sized exactly by default:
      torch shapes are dynamic, so the pair count is read once and nothing
      is ever dropped to a static capacity,
   3. a lexicographic device sort by (read, entry, relPos, rc),
   4. exact chained dedup of |delta relPos| < 3 (Overlap.h:79-85).
 
-Counterpart of kslam_tpu/ops/match.py (exact join only: the TPU bucket
-and prefix-window layouts and their tier-2 fallback are not needed when
-the join is exact).  Invalid rows are parked at int32 max so they sort to
-the tail, as in the reference package.
+Counterpart of kslam_tpu/ops/match.py.  Invalid rows are parked at
+int32 max so they sort to the tail, as in the reference package.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import K
+from . import join
 from .kmers import FLIP
 from .rows import lex_perm, shift1
 
@@ -89,18 +90,54 @@ def _emit_pairs(lo, clipped, q_pack, idx_pack, n_index: int,
     return key1, key2, cap_overflow, total64
 
 
+def join_bounds(q_kmer, q_ok, index_kmers, idx_pstart=None,
+                prefix_bits: int = 0, window: int = 0, idx_rows=None,
+                idx_pstart2=None, idx_bucket=None, bucket_bits: int = 0):
+    """(lo, hi) int64 insertion bounds of the keys q_kmer [Q] in the
+    sorted index keys, exact wherever q_ok.  Backends, in the reference
+    package's order (kslam_tpu/ops/match.py expand_seeds):
+      * idx_bucket/bucket_bits: the one-gather bucket table,
+      * idx_rows/idx_pstart2: the overlapping-rows prefix layout,
+      * idx_pstart/prefix_bits/window: the prefix window,
+      * none: the exact search.
+    Tier 2: the q_ok queries a table leaves uncovered are compacted,
+    searched exactly in index_kmers, and their bounds put back in place,
+    so their pairs expand with all others (the reference appends them as
+    a block; finish_overlaps' sort makes the order moot)."""
+    if idx_bucket is not None and bucket_bits:
+        lo, hi, uncovered = join.lookup_bucket(idx_bucket, q_kmer,
+                                               bucket_bits)
+    elif idx_rows is not None and prefix_bits:
+        lo, hi, uncovered = join.lookup_prefix_rows(
+            idx_rows, idx_pstart2, q_kmer, prefix_bits, window)
+    elif idx_pstart is not None and prefix_bits:
+        lo, hi, uncovered = join.lookup_prefix_window(
+            index_kmers, idx_pstart, q_kmer, prefix_bits, window)
+    else:
+        return join.searchsorted_both(index_kmers, q_kmer)
+    sel = torch.nonzero(q_ok & (uncovered > 0)).reshape(-1)
+    lo2, hi2 = join.searchsorted_both(index_kmers, q_kmer[sel])
+    return lo.index_put((sel,), lo2), hi.index_put((sel,), hi2)
+
+
 def expand_seeds(read_kmer, read_off, read_rc, read_valid, read_lengths,
                  index_kmers, idx_pack,
                  max_matches: Optional[int] = None,
-                 capacity: Optional[int] = None):
+                 capacity: Optional[int] = None, idx_pstart=None,
+                 prefix_bits: int = 0, window: int = 0,
+                 idx_rows=None, idx_pstart2=None,
+                 idx_bucket=None, bucket_bits: int = 0):
     """Join + pair expansion (the first half of match_overlaps).
 
-    read_kmer: int64 keys [N, W]; index_kmers: sorted int64 keys [M];
-    idx_pack: int64 [M] words entry<<33 | offset<<1 | rc.
+    read_kmer: int64 keys [N, W]; index_kmers: sorted int64 keys [M'],
+    sentinel-padded (db/kmer_index.join_columns) when a prefix table is
+    given; idx_pack: int64 [M'] words entry<<33 | offset<<1 | rc.
     max_matches=None: no per-k-mer fanout clip; capacity=None: exactly
     the number of emitted pairs.  Either cap, when given and smaller than
     the data, drops pairs and counts them into `overflow`, as the
     reference package does.
+
+    The join is join_bounds with the table arguments.
 
     Returns (key1 int64 [cap], key2 int64 [cap], overflow int64 [],
     needed_capacity int64 [], max_fanout int32 [])."""
@@ -118,8 +155,10 @@ def expand_seeds(read_kmer, read_off, read_rc, read_valid, read_lengths,
     # pileups with k-mer == 0 are skipped entirely (Overlap.h:236-239)
     q_ok = read_valid.reshape(-1) & (q_kmer != FLIP)
 
-    lo = torch.searchsorted(index_kmers, q_kmer, right=False)
-    hi = torch.searchsorted(index_kmers, q_kmer, right=True)
+    lo, hi = join_bounds(q_kmer, q_ok, index_kmers, idx_pstart=idx_pstart,
+                         prefix_bits=prefix_bits, window=window,
+                         idx_rows=idx_rows, idx_pstart2=idx_pstart2,
+                         idx_bucket=idx_bucket, bucket_bits=bucket_bits)
     matches = torch.where(q_ok, hi - lo, 0)
     clipped = matches if max_matches is None else \
         torch.clamp(matches, max=max_matches)
@@ -165,12 +204,15 @@ def finish_overlaps(key1, key2, overflow, needed_capacity,
 def match_overlaps(read_kmer, read_off, read_rc, read_valid, read_lengths,
                    index_kmers, idx_pack,
                    max_matches: Optional[int] = None,
-                   capacity: Optional[int] = None) -> Overlaps:
-    """Full seeding stage: expand_seeds + finish_overlaps.
+                   capacity: Optional[int] = None, **join_tables) -> Overlaps:
+    """Full seeding stage: expand_seeds + finish_overlaps.  join_tables:
+    expand_seeds' table arguments (idx_bucket, bucket_bits, idx_pstart,
+    prefix_bits, window, idx_rows, idx_pstart2).
     Returns Overlaps sorted by (read, entry, relPos, rc), deduped."""
     seeds = expand_seeds(read_kmer, read_off, read_rc, read_valid,
                          read_lengths, index_kmers, idx_pack,
-                         max_matches=max_matches, capacity=capacity)
+                         max_matches=max_matches, capacity=capacity,
+                         **join_tables)
     return finish_overlaps(*seeds)
 
 

@@ -11,7 +11,9 @@ single-controller design with its collectives written out:
   * reads are split over the "data" axis (one sub-batch per data row),
   * the sorted k-mer index is range-sharded over the "index" axis
     (shard_database: a range shard never splits a pileup), and each cell
-    joins its data row's reads against its own shard,
+    joins its data row's reads against its own shard, with the shard's
+    own prefix table (the global one clipped to the shard's range) and
+    the exact tier 2 of ops/match.expand_seeds,
   * the packed seed words of a data row are all-gathered over "index"
     onto the row's first device, merge-sorted and deduped there (exact:
     range shards never split a pileup and the sort erases shard order),
@@ -49,8 +51,9 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..db.kmer_index import index_words_np
 from ..ops import kmers, match, sw
-from ..pipeline import align, device_path
+from ..pipeline import device_path
 from ..utils import metrics
 
 
@@ -140,12 +143,15 @@ class ShardedAlignResult(NamedTuple):
 class ShardedDB(NamedTuple):
     """place_sharded_db result: the database tensors each mesh cell reads,
     as [D][S] tuples (cells on one device share one tensor)."""
-    kmers: tuple          # int64 keys of index range shard s
+    kmers: tuple          # int64 keys of index range shard s, padded
     idx_pack: tuple       # int64 entry<<33 | offset<<1 | rc of shard s
     genome_chunks: tuple  # uint8 [G/32, 32] SW codes: all, or slice s
     entry_offsets: tuple  # int64: global, or rebased to slice s
     e_bounds: Optional[np.ndarray]  # int32 [S+1] entry ranges of the
     # genome slices (None: genomes replicated)
+    pstart: tuple         # int32 [2^bits + 1] prefix table of shard s
+    prefix_bits: int      # (0: no table, pstart None, the exact search)
+    prefix_window: int
 
 
 def _reads_on(bases, lengths, window_len: int, nbits, kbits, dev):
@@ -252,7 +258,8 @@ def make_sharded_phase_a(mesh: Mesh, *, paired: bool, match_s: int,
     For each data row d, with dev0 its first cell's device:
       1. each cell (d, s) unpacks row d's reads (once per distinct
          device) and expands their seed pairs against index shard s
-         (ops/match.expand_seeds, exact),
+         (ops/match.expand_seeds: the shard's prefix window and the
+         exact tier 2),
       2. the packed candidate words are all-gathered onto dev0, merge
          sorted and deduped (ops/match.finish_overlaps) and compacted,
       3. SW: without genome sharding, cell (d, s) aligns the s-th of S
@@ -327,7 +334,10 @@ def make_sharded_phase_a(mesh: Mesh, *, paired: bool, match_s: int,
                     for dev in dict.fromkeys(cells)}
                 seeds = [match.expand_seeds(
                     *reads[dev][:4], reads[dev][5], sdb.kmers[d][s],
-                    sdb.idx_pack[d][s]) for s, dev in enumerate(cells)]
+                    sdb.idx_pack[d][s], idx_pstart=sdb.pstart[d][s],
+                    prefix_bits=sdb.prefix_bits,
+                    window=sdb.prefix_window)
+                    for s, dev in enumerate(cells)]
                 _sync(mesh)
             with metrics.stage("mesh_merge"):
                 res = match.compact_overlaps(match.finish_overlaps(
@@ -358,15 +368,17 @@ def make_sharded_phase_a(mesh: Mesh, *, paired: bool, match_s: int,
 
 def place_sharded_db(mesh: Mesh, kidx, genome_scodes_np, entry_offsets_np,
                      genome_sharded: bool = False) -> ShardedDB:
-    """Moves the index range shards onto the devices of their index
-    column and the genome chunk rows and offsets onto every device
-    (replicated) or, with genome_sharded, each entry-range slice onto
-    the devices of its column.  Each distinct tensor goes once to each
-    distinct device: on one card a replicated genome is one tensor, not
-    one per cell.  Per-chunk steps then move no database bytes."""
+    """Moves the index range shards (sentinel-padded, with their clipped
+    prefix tables: shard_database(..., with_prefix=True)) onto the
+    devices of their index column and the genome chunk rows and offsets
+    onto every device (replicated) or, with genome_sharded, each
+    entry-range slice onto the devices of its column.  Each distinct
+    tensor goes once to each distinct device: on one card a replicated
+    genome is one tensor, not one per cell.  Per-chunk steps then move
+    no database bytes."""
     index = mesh.shape["index"]
-    km, eid, off, rc = shard_database(kidx, index)
-    counts = np.diff(kidx.shard_bounds(index))
+    km, eid, off, rc, pstart, bits, window = shard_database(
+        kidx, index, with_prefix=True)
     per = len(km) // index
     if genome_sharded:
         scodes, offsets, e_bounds = shard_genomes(
@@ -389,9 +401,12 @@ def place_sharded_db(mesh: Mesh, kidx, genome_scodes_np, entry_offsets_np,
         return placed[(key, dev)]
 
     def index_shard(s):
-        lo, hi = s * per, s * per + int(counts[s])
-        return align.index_words_np(km[lo:hi], eid[lo:hi], off[lo:hi],
-                                    rc[lo:hi])
+        sl = slice(s * per, (s + 1) * per)
+        keys, pack = index_words_np(km[sl], eid[sl], off[sl], rc[sl])
+        if not bits:
+            return keys, pack
+        p = len(pstart) // index
+        return keys, pack, pstart[s * p:(s + 1) * p]
 
     cells = [[(put(("index", s), functools.partial(index_shard, s), dev),
                put(("genome", s if genome_sharded else 0),
@@ -402,7 +417,9 @@ def place_sharded_db(mesh: Mesh, kidx, genome_scodes_np, entry_offsets_np,
                      idx_pack=grid(lambda c: c[0][1]),
                      genome_chunks=grid(lambda c: c[1][0]),
                      entry_offsets=grid(lambda c: c[1][1]),
-                     e_bounds=e_bounds)
+                     e_bounds=e_bounds,
+                     pstart=grid(lambda c: c[0][2] if bits else None),
+                     prefix_bits=bits, prefix_window=window)
 
 
 def _to(x, dev):

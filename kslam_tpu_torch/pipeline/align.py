@@ -1,13 +1,15 @@
 """Device-resident database tensors, the host-object alignment stage and
 the deferred SAM cigars.
 
-Counterpart of kslam_tpu/pipeline/align.py.  DeviceDB keeps only what
-the exact join and the SW window builders read: the sorted k-mer keys
-(ops/kmers.py key encoding), the per-slot entry|offset|rc word, the
-genome codes as [G/32, 32] rows, the entry offsets and, for the
-host-object path only (--device-pipeline off), the flat [G] genome codes.
-No bucket or prefix tables: the join is an exact searchsorted, so
-align_batch_to_database needs no overflow retry.
+Counterpart of kslam_tpu/pipeline/align.py.  DeviceDB holds what the
+join and the SW window builders read: the sorted k-mer keys
+(ops/kmers.py key encoding) and the per-slot entry|offset|rc word, both
+sentinel-padded, the join's tables (the prefix table and, unless
+--no-prefix-rows, the bucket table), the genome codes as [G/32, 32]
+rows, the entry offsets and, for the host-object path only
+(--device-pipeline off), the flat [G] genome codes.  The join's tier 2
+is exact (ops/match.expand_seeds), so align_batch_to_database needs no
+overflow retry.
 
 Cigars are not computed at alignment time: SAM output needs them only
 for the top numSAMAlignments survivors per read, which
@@ -26,7 +28,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..db.genbank import GenbankIndex
-from ..db.kmer_index import KmerIndex
+from ..db.kmer_index import KmerIndex, join_columns
 from ..golden import ssw as golden_ssw
 from ..io.fastq import ReadBatch
 from ..ops import encode, kmers, match, sw
@@ -37,36 +39,37 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1)).bit_length()
 
 
-def index_words_np(kmer_words, entry_id, offset, rc):
-    """The join's two index columns as int64 host arrays: the sorted
-    k-mer keys (ops/kmers.py key encoding) and the per-slot word
-    entry<<33 | offset<<1 | rc."""
-    keys = kmers.keys_from_words_np(kmer_words)
-    pack = ((np.asarray(entry_id).astype(np.uint64) << np.uint64(33))
-            | (np.asarray(offset).astype(np.uint64) << np.uint64(1))
-            | np.asarray(rc).astype(np.uint64)).view(np.int64)
-    return keys, pack
-
-
 @dataclasses.dataclass
 class DeviceDB:
     """Database tensors on one device."""
-    kmers: torch.Tensor          # int64 [M] sorted k-mer keys
-    idx_pack: torch.Tensor       # int64 [M] entry<<33 | offset<<1 | rc
+    kmers: torch.Tensor          # int64 [M'] sorted keys, sentinel-padded
+    idx_pack: torch.Tensor       # int64 [M'] entry<<33 | offset<<1 | rc
     genome_chunks: torch.Tensor  # uint8 [G/32, 32] SW codes, N-padded
     entry_offsets: torch.Tensor  # int64 [E + 1]
     genome_scodes: torch.Tensor = None  # uint8 [G] (host-object path)
+    pstart: torch.Tensor = None  # int32 [2^bits + 1] prefix table
+    prefix_bits: int = 0         # (db/kmer_index.prefix_table);
+    prefix_window: int = 0       # 0 bits = exact search
+    bucket: torch.Tensor = None  # int32 [2^b, 16] one-gather join rows
+    bucket_bits: int = 0         # (db/kmer_index.bucket_table)
 
     @classmethod
     def from_index(cls, gindex: GenbankIndex, kidx: KmerIndex,
-                   device, flat_scodes: bool = False) -> "DeviceDB":
+                   device, flat_scodes: bool = False,
+                   prefix_rows: bool = True) -> "DeviceDB":
         """Tensors on `device` from the host index objects (the same
         GenbankIndex / KmerIndex the reference package loads).
         flat_scodes adds the flat [G] genome copy that only the
-        host-object path's window gather reads."""
+        host-object path's window gather reads.  prefix_rows=False
+        skips the bucket table (64 B per row, 2^21-2^26 rows): the join
+        is then the prefix window on pstart."""
         dev = torch.device(device)
-        keys, pack = index_words_np(kidx.kmers, kidx.entry_id, kidx.offset,
-                                    kidx.rc)
+        keys, pack, pstart, bits, window = join_columns(kidx)
+        bucket, bucket_bits = None, 0
+        if prefix_rows and len(kidx):
+            tbl, bucket_bits = kidx.bucket_table()
+            # a copy: a cached table is a read-only memory map
+            bucket = torch.from_numpy(np.array(tbl)).to(dev)
         scodes = encode.sw_codes_np(gindex.bases_concat)
         chunks = sw.genome_chunks_from_scodes(scodes)
         return cls(
@@ -76,7 +79,17 @@ class DeviceDB:
             entry_offsets=torch.as_tensor(
                 np.asarray(gindex.entry_offsets, np.int64)).to(dev),
             genome_scodes=torch.as_tensor(scodes).to(dev)
-            if flat_scodes else None)
+            if flat_scodes else None,
+            pstart=None if pstart is None
+            else torch.as_tensor(pstart).to(dev),
+            prefix_bits=bits, prefix_window=window, bucket=bucket,
+            bucket_bits=bucket_bits)
+
+    def join_tables(self) -> dict:
+        """The join's table arguments of ops/match.expand_seeds."""
+        return dict(idx_pstart=self.pstart, prefix_bits=self.prefix_bits,
+                    window=self.prefix_window, idx_bucket=self.bucket,
+                    bucket_bits=self.bucket_bits)
 
 
 def align_batch_to_database(batch: ReadBatch, db: DeviceDB,
@@ -107,9 +120,11 @@ def align_batch_to_database(batch: ReadBatch, db: DeviceDB,
 
     km, off, rc, valid = kmers.read_kmers_from_codes(
         encode.kmer_codes(d_bases), d_lengths)
-    # the exact join drops nothing, so there is no emit-all retry
+    # the join and its tier 2 are exact and nothing is capped, so there
+    # is no emit-all retry
     result = match.compact_overlaps(match.match_overlaps(
-        km, off, rc, valid, d_lengths, db.kmers, db.idx_pack))
+        km, off, rc, valid, d_lengths, db.kmers, db.idx_pack,
+        **db.join_tables()))
     count = int(result.count)
     if not count:
         return []

@@ -4,9 +4,10 @@ Counterpart of kslam_tpu/pipeline/device_path.py.  Two phases split by
 the insert-size model (an exact host percentile over the chunk's insert
 sizes, PairedOverlap.h:300-360):
 
-  phase A: unpack codes -> canonical k-mers -> exact join + expansion +
-           sort + chained dedup -> compact -> chunked SW (the CUDA kernel
-           on the card) -> pairing sweep.
+  phase A: unpack codes -> canonical k-mers -> join (the DB's table and
+           an exact tier 2) + expansion + sort + chained dedup ->
+           compact -> chunked SW (the CUDA kernel on the card) ->
+           pairing sweep.
   host:    max_allowed_insert_size over the chunk's insert sizes.
   phase B: per batch insert screen (replace) + score screen -> chunk-wide
            concat -> pseudo-assembly chain labels -> exact host double
@@ -109,18 +110,21 @@ def screen_and_pair(res: match.Overlaps, al: sw.SWAlignments, lengths,
 def phase_a(bases, lengths, midpoint, idx_kmers, idx_pack, genome_chunks,
             entry_offsets, match_s: int, mismatch: int, gap_open: int,
             gap_extend: int, window_len: int, score_threshold: int = 0,
-            paired: bool = True, nbits=None, kbits=None) -> PhaseAOut:
+            paired: bool = True, nbits=None, kbits=None,
+            **join_tables) -> PhaseAOut:
     """One device batch through seeding, SW and pairing.
 
     bases: ASCII u8 [N, L], or with nbits/kbits the packed 2-bit plane
     [N, ceil(L/4)] of encode.pack_reads_np and its bit sidecars.
-    lengths: int32 [N]; midpoint: first R2 row (paired)."""
+    lengths: int32 [N]; midpoint: first R2 row (paired).  join_tables:
+    the DB's join tables (align.DeviceDB.join_tables); none joins by
+    the exact search."""
     dev = bases.device
     with metrics.stage("phase_a_seed"):
         kcodes, read_scodes = decode_reads(bases, window_len, nbits, kbits)
         km, off, rc, valid = kmers.read_kmers_from_codes(kcodes, lengths)
         res = match.match_overlaps(km, off, rc, valid, lengths, idx_kmers,
-                                   idx_pack)
+                                   idx_pack, **join_tables)
         res = match.compact_overlaps(res)
         _sync(dev)
     with metrics.stage("phase_a_sw"):

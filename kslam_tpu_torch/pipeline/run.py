@@ -202,7 +202,8 @@ def process_chunk(batch: ReadBatch, db: align.DeviceDB,
                     gap_open=p.gap_open, gap_extend=p.gap_extend,
                     window_len=lay.l, score_threshold=config.score_threshold,
                     paired=paired, nbits=torch.as_tensor(nbits).to(dev),
-                    kbits=torch.as_tensor(kbits).to(dev)))
+                    kbits=torch.as_tensor(kbits).to(dev),
+                    **db.join_tables()))
 
     max_insert = 2**32 - 1
     if paired:
@@ -478,7 +479,8 @@ def metagenomic_analysis(r1_path: str, r2_path: Optional[str],
             use_device = True
         else:
             db = align.DeviceDB.from_index(gindex, kidx, device,
-                                           flat_scodes=not use_device)
+                                           flat_scodes=not use_device,
+                                           prefix_rows=config.prefix_rows)
     if config.mesh_shape:
         with metrics.stage("shard_placement"):
             mesh = dist.build_mesh(dist.local_devices(device),

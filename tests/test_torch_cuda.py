@@ -2,8 +2,9 @@
 kernels against their plain torch versions (the forward kernel and the
 fused forward + reverse kernel: odd shapes, n_valid, every row-count
 instantiation, wide scores, the chunked windows of the device pipeline),
-the host screen on CUDA against the CPU, the sharded phase
-A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
+the host screen on CUDA against the CPU, the join's three backends
+(bucket table, prefix window, exact search) against each other on CUDA,
+the sharded phase A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
 against the CPU, and the CUDA CLI runs (classification and SAM, and
 over four chunks at both chunk-pipeline depths) against the CPU ones.
 They import neither jax nor kslam_tpu, so they run on the card's
@@ -23,10 +24,11 @@ import torch
 from kslam_tpu_torch import cli
 from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
 from kslam_tpu_torch.db.host_table import HostTable
-from kslam_tpu_torch.db.kmer_index import KmerIndex
+from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
 from kslam_tpu_torch.db.taxonomy import TaxonomyDB
 from kslam_tpu_torch.eval.sw_windows import n_windows
-from kslam_tpu_torch.ops import encode, screen, screens_dev, sw, sw_cuda
+from kslam_tpu_torch.ops import encode, join, kmers, match, screen, \
+    screens_dev, sw, sw_cuda
 from kslam_tpu_torch.parallel import dist
 
 torch.set_num_threads(1)
@@ -510,3 +512,52 @@ def test_pseudo_assembly_device_cuda_vs_cpu(cuda_device):
     assert differ == 0
     for name in screens_dev.PairCols._fields:
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skewed", [False, True], ids=["random", "skewed"])
+def test_join_backends_agree_on_cuda(cuda_device, skewed):
+    """lookup_bucket and lookup_prefix_window, each with the exact tier 2
+    on its uncovered queries, give the (lo, hi) of searchsorted_both on
+    the card, and the CPU's; skewed keys (runs of 300 and 40 equal keys,
+    a dense cluster of one prefix) leave queries to tier 2."""
+    rng = np.random.default_rng(23)
+    words = rng.integers(0, 2**64 - 1, 200_000, dtype=np.uint64)
+    if skewed:
+        words = np.concatenate([
+            words, np.full(300, words[5]), np.full(40, words[9]),
+            words[11] + rng.integers(0, 4096, 3000, dtype=np.uint64)])
+    words = np.sort(words)
+    z = np.zeros(len(words), np.int32)
+    kidx = KmerIndex(words, z, z, np.zeros(len(words), bool))
+    keys, _, pstart, bits, window = join_columns(kidx)
+    tbl, bbits = kidx.bucket_table()
+    q_words = np.concatenate([rng.choice(words, 100_000),
+                              rng.integers(0, 2**64 - 1, 100_000,
+                                           dtype=np.uint64)])
+    q_np = kmers.keys_from_words_np(q_words)
+    results = {}
+    for dev in ("cpu", cuda_device):
+        k = torch.as_tensor(keys).to(dev)
+        q = torch.as_tensor(q_np).to(dev)
+        q_ok = torch.ones(q.shape, dtype=torch.bool, device=dev)
+        exact = join.searchsorted_both(k, q)
+        tables = {
+            "bucket": dict(idx_bucket=torch.from_numpy(np.array(tbl)).to(dev),
+                           bucket_bits=bbits),
+            "window": dict(idx_pstart=torch.as_tensor(pstart).to(dev),
+                           prefix_bits=bits, window=window)}
+        if skewed:
+            assert int((join.lookup_bucket(tables["bucket"]["idx_bucket"],
+                                           q, bbits)[2] > 0).sum()) > 0
+            assert int((join.lookup_prefix_window(
+                k, tables["window"]["idx_pstart"], q, bits,
+                window)[2] > 0).sum()) > 0
+        for name, kw in tables.items():
+            for a, b_ in zip(match.join_bounds(q, q_ok, k, **kw), exact):
+                assert torch.equal(a, b_), name
+        results[str(dev)] = [x.cpu() for x in exact]
+    for a, b_ in zip(results["cpu"], results[str(cuda_device)]):
+        assert torch.equal(a, b_)
+    np.testing.assert_array_equal(results["cpu"][0].numpy(),
+                                  np.searchsorted(words, q_words, "left"))

@@ -83,13 +83,22 @@ def _eq(t, j):
 def test_device_db_tensors_equal_jax(setup):
     taxdb, gindex, kidx, jdb, tdb, batch = setup
     m = len(kidx)
-    assert tdb.kmers.shape[0] == m
+    # both packages pad the index to pow2(M + 2 * window): the all-ones
+    # sentinel (int64 max as a key) and zero words
+    assert tdb.kmers.shape[0] == np.asarray(jdb.kmers).shape[0] > m
     np.testing.assert_array_equal(
-        tdb.kmers.numpy(), kmers.keys_from_words_np(np.asarray(jdb.kmers)[:m]))
+        tdb.kmers.numpy(), kmers.keys_from_words_np(np.asarray(jdb.kmers)))
     np.testing.assert_array_equal(
-        tdb.idx_pack.numpy(), np.asarray(jdb.idx_pack)[:m].view(np.int64))
-    # the padded tail of the JAX index is the all-ones sentinel
+        tdb.idx_pack.numpy(), np.asarray(jdb.idx_pack).view(np.int64))
     assert np.all(np.asarray(jdb.kmers)[m:] == np.uint64(2**64 - 1))
+    _eq(tdb.pstart, jdb.pstart)
+    assert (tdb.prefix_bits, tdb.prefix_window) == \
+        (jdb.prefix_bits, jdb.prefix_window)
+    # the port's DB carries the bucket table; the reference's fixture
+    # (prefix_rows=False) does not
+    tbl, bbits = kidx.bucket_table()
+    assert tdb.bucket_bits == bbits and jdb.bucket is None
+    _eq(tdb.bucket, tbl)
     _eq(tdb.genome_chunks, jdb.genome_chunks)
     _eq(tdb.entry_offsets, jdb.entry_offsets)
     assert torch.all(tdb.kmers[1:] >= tdb.kmers[:-1])
@@ -113,9 +122,12 @@ def _phase_a_both(setup, paired, packed):
         jdb.entry_id, jdb.offset, jdb.rc, jdb.genome_chunks,
         jdb.entry_offsets, max_matches=64, capacity=1 << 12,
         sw_batch=1 << 10, chain_iters=32, idx_pack=jdb.idx_pack, **kw, **jx)
+    # the port joins with its bucket table and tier 2, the reference
+    # (prefix_rows=False, no tables passed) with its exact search
     ta = device_path.phase_a(
         torch.as_tensor(x), torch.as_tensor(b.lengths), mid, tdb.kmers,
-        tdb.idx_pack, tdb.genome_chunks, tdb.entry_offsets, **kw, **tx)
+        tdb.idx_pack, tdb.genome_chunks, tdb.entry_offsets, **kw, **tx,
+        **tdb.join_tables())
     assert int(ja.overlaps.overflow) == 0
     return ja, ta
 

@@ -140,3 +140,86 @@ def test_compact_overlaps_keeps_kept_rows_in_order():
     for name in ("read_id", "entry_id", "rel_pos", "rc"):
         np.testing.assert_array_equal(getattr(tc, name).numpy(),
                                       getattr(tres, name).numpy()[keep])
+
+
+@pytest.fixture(scope="module")
+def realistic_join():
+    """A repeat-rich index (the copied eval/realistic.py generator: its
+    low-complexity tracts and IS copies make prefix runs longer than the
+    window and escaped buckets), reads drawn from it, and the reference's
+    match_overlaps with the bucket table and its tier 2."""
+    from kslam_tpu_torch.eval import realistic
+    entries = realistic.make_realistic_entries(n_genomes=2, bp_each=60_000,
+                                               seed=7, plasmid_bp=8_000)
+    kidx = KmerIndex.build(GenbankIndex([
+        GenbankEntry(bases=e.seq.tobytes().decode()) for e in entries]))
+    rng = np.random.default_rng(17)
+    n, l = 96, 160
+    bases = np.zeros((n, l), np.uint8)
+    for i in range(n):
+        seq = entries[i % len(entries)].seq
+        pos = int(rng.integers(0, len(seq) - 150))
+        bases[i, :150] = seq[pos:pos + 150]
+    lengths = np.full(n, 150, np.int32)
+    km, eid, off, rc, pstart, bits, window = kidx.device_arrays()
+    tbl, bbits = kidx.bucket_table()
+    m = len(kidx)
+    pk = np.zeros(km.shape[0], np.uint64)
+    pk[:m] = ((kidx.entry_id.astype(np.uint64) << np.uint64(33)) |
+              (kidx.offset.astype(np.uint64) << np.uint64(1)) |
+              kidx.rc.astype(np.uint64))
+    kc = encode.kmer_codes_np(bases)
+    jk = jkmers.read_kmers_from_codes(jnp.asarray(kc), jnp.asarray(lengths))
+    jres = jmatch.match_overlaps(
+        *jk, jnp.asarray(lengths), km, eid, off, rc, max_matches=1 << 12,
+        capacity=1 << 18, chain_iters=CHAIN_ITERS,
+        idx_bucket=jnp.asarray(tbl), bucket_bits=bbits, tier2_cap=1 << 12,
+        idx_pack=jnp.asarray(pk))
+    assert int(jres.overflow) == 0
+    return kidx, bases, lengths, jres
+
+
+@pytest.mark.parametrize("backend", ["bucket", "window", "rows", "exact"])
+def test_join_backends_match_jax(realistic_join, backend):
+    """Each join backend of the port, with its exact tier 2, gives the
+    reference's seeds row for row after finish_overlaps: the sorted
+    (read, entry, relPos, rc) of every pair and the kept set.  The pad of
+    idx_pack is poisoned, so an emitted pad slot would show."""
+    from kslam_tpu_torch.db.kmer_index import join_columns
+    from kslam_tpu_torch.ops import join
+    kidx, bases, lengths, jres = realistic_join
+    keys, pack, pstart, bits, window = join_columns(kidx)
+    m = len(kidx)
+    pack[m:] = (1 << 29) << 33               # entry id 2^29: no such entry
+    keys_t, pstart_t = torch.as_tensor(keys), torch.as_tensor(pstart)
+    tables = {"exact": {}, "window": dict(
+        idx_pstart=pstart_t, prefix_bits=bits, window=window)}
+    tbl, bbits = kidx.bucket_table()
+    tables["bucket"] = dict(idx_bucket=torch.from_numpy(tbl),
+                            bucket_bits=bbits)
+    rows, p2 = join.build_prefix_rows(keys_t, pstart_t, window)
+    tables["rows"] = dict(idx_rows=rows, idx_pstart2=p2, prefix_bits=bits,
+                          window=window)
+    kc = encode.kmer_codes_np(bases)
+    tk = kmers.read_kmers_from_codes(torch.as_tensor(kc),
+                                     torch.as_tensor(lengths))
+    q = tk[0].reshape(-1)
+    # the tables leave queries to tier 2 on this index
+    if backend == "bucket":
+        assert int((join.lookup_bucket(tables["bucket"]["idx_bucket"], q,
+                                       bbits)[2] > 0).sum()) > 0
+    elif backend == "window":
+        assert int((join.lookup_prefix_window(keys_t, pstart_t, q, bits,
+                                              window)[2] > 0).sum()) > 0
+    seeds = match.expand_seeds(*tk, torch.as_tensor(lengths), keys_t,
+                               torch.as_tensor(pack), **tables[backend])
+    tres = match.finish_overlaps(*seeds)
+    assert int(tres.overflow) == 0
+    assert int(tres.needed_capacity) == int(jres.needed_capacity)
+    n = int((tres.read_id != match.INT32_MAX).sum())
+    assert n == int(jres.needed_capacity) > 0
+    for name in ("read_id", "entry_id", "rel_pos", "rc"):
+        np.testing.assert_array_equal(
+            getattr(tres, name)[:n].numpy(),
+            np.asarray(getattr(jres, name))[:n])
+    _assert_same_kept(jres, tres)

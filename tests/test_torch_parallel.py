@@ -68,7 +68,8 @@ def test_build_mesh_cycles_cells_over_devices():
 def test_shard_layouts_equal_jax(num_shards):
     """shard_database / shard_genomes equal the reference's arrays, and
     each cell of place_sharded_db holds its shard's key-encoded index
-    (the reference's shard without its sentinel tail) and its genome."""
+    (the reference's padded shard), its clipped prefix table and its
+    genome."""
     rng = np.random.default_rng(num_shards)
     lens = rng.integers(200, 900, 7)
     genomes = [B4[rng.integers(0, 4, n)].tobytes().decode() for n in lens]
@@ -87,8 +88,15 @@ def test_shard_layouts_equal_jax(num_shards):
                                              num_shards)):
         np.testing.assert_array_equal(got, want)
 
-    jkm, jeid, joff, jrc = jdist.shard_database(jk, num_shards)
+    jkm, jeid, joff, jrc, jpstart, bits, window = jdist.shard_database(
+        jk, num_shards, with_prefix=True)
+    for got, want in zip(dist.shard_database(tk, num_shards,
+                                             with_prefix=True),
+                         (jkm, jeid, joff, jrc, jpstart, bits, window)):
+        np.testing.assert_array_equal(got, want)
+    assert bits > 0 and window > 0
     per = len(jkm) // num_shards
+    pw = len(jpstart) // num_shards
     for gshard in (False, True):
         mesh = dist.build_mesh(["cpu"], data=2, index=num_shards)
         sdb = dist.place_sharded_db(mesh, tk, scodes, jg.entry_offsets,
@@ -96,21 +104,23 @@ def test_shard_layouts_equal_jax(num_shards):
         j_scodes, j_offs, j_eb = jdist.shard_genomes(
             jg.entry_offsets, scodes, num_shards)
         for s in range(num_shards):
+            # the padded shard (sentinel keys, zero words in the tail) and
+            # its clipped prefix table
             sl = slice(s * per, (s + 1) * per)
-            live = jkm[sl] != np.uint64(2**64 - 1)
-            assert live.sum() == len(sdb.kmers[0][s])
             np.testing.assert_array_equal(
-                sdb.kmers[1][s].numpy(),
-                kmers.keys_from_words_np(jkm[sl][live]))
+                sdb.kmers[1][s].numpy(), kmers.keys_from_words_np(jkm[sl]))
+            assert sdb.kmers[1][s][-1] == 2**63 - 1
             pack = sdb.idx_pack[0][s].numpy().view(np.uint64)
-            np.testing.assert_array_equal(pack >> np.uint64(33),
-                                          jeid[sl][live])
+            np.testing.assert_array_equal(pack >> np.uint64(33), jeid[sl])
             np.testing.assert_array_equal(
-                (pack >> np.uint64(1)) & np.uint64(0xFFFFFFFF),
-                joff[sl][live])
-            np.testing.assert_array_equal(pack & np.uint64(1), jrc[sl][live])
+                (pack >> np.uint64(1)) & np.uint64(0xFFFFFFFF), joff[sl])
+            np.testing.assert_array_equal(pack & np.uint64(1), jrc[sl])
+            np.testing.assert_array_equal(sdb.pstart[0][s].numpy(),
+                                          jpstart[s * pw:(s + 1) * pw])
+            assert (sdb.prefix_bits, sdb.prefix_window) == (bits, window)
             # one tensor per (shard, device): both data rows share it
             assert sdb.kmers[0][s] is sdb.kmers[1][s]
+            assert sdb.pstart[0][s] is sdb.pstart[1][s]
             if gshard:
                 g = len(j_scodes) // num_shards
                 np.testing.assert_array_equal(

@@ -49,6 +49,28 @@ def fasta_db(root):
     return db
 
 
+def realistic_db(root):
+    """Repeat-rich FASTA DB (kslam_tpu.eval.realistic: shared operons, IS
+    copies and low-complexity tracts make prefix runs longer than the
+    join's window and escaped buckets), built by the CLI, with paired
+    reads drawn from it."""
+    from kslam_tpu.eval import realistic
+    entries = realistic.make_realistic_entries(n_genomes=2, bp_each=30_000,
+                                               seed=7, plasmid_bp=6_000)
+    seqs = [e.seq.tobytes().decode() for e in entries]
+    fa = root / "db.fasta"
+    fa.write_text("".join(f">R{i}\n{s}\n" for i, s in enumerate(seqs)))
+    (root / "names.dmp").write_text(
+        "1\t|\troot\t|\t\t|\tscientific name\t|\n")
+    (root / "nodes.dmp").write_text("1\t|\t1\t|\tno rank\t|\n")
+    db = root / "DB"
+    jcli.main(["--parse-fasta", "--output-file", str(db), str(fa)])
+    jcli.main(["--parse-taxonomy", str(root / "names.dmp"),
+               str(root / "nodes.dmp"), "--output-file", str(db / "taxDB")])
+    _reads(root, seqs, np.random.default_rng(9), 40, 150, 280, 420)
+    return db
+
+
 def genbank_db(root):
     """DB with taxids and gene annotation on every entry, as
     tests/test_end_to_end.py's dataset."""
