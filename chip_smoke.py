@@ -5,9 +5,12 @@
 
 Phases (each prints its own line; any failure exits non-zero):
   1. device: the card's name and power limit; a CUDA device is required.
-  2. build: the SW kernel (nvcc, kslam_tpu_torch/csrc) and the native
-     host library (make -C csrc, the first of $CXX, g++, c++ that links
-     OpenMP), built in parallel; the library must load.
+  2. build: the CUDA kernel library (ops/cuda_lib.py: one nvcc per
+     kslam_tpu_torch/csrc/*.cu, all started together, linked into one
+     library: the SW kernels and the join's bucket_join and window_join;
+     ptxas's registers and spills of every kernel are printed) and the
+     native host library (make -C csrc, the first of $CXX, g++, c++ that
+     links OpenMP), built in parallel; both must load.
   3. kernels vs plain: the forward kernel (sw_forward) against its
      plain torch twin on the card at the main path's shapes (B = 32768,
      Lq = 160, Lr = 192): random codes with 5% N, planted near-identical
@@ -36,7 +39,11 @@ Phases (each prints its own line; any failure exits non-zero):
      query_end x columns from the first base to ref_end): 8.5 int32
      instructions per cell over the SMs' dispatch rate (SMs x 128 lanes
      x clocks.max.sm); the cells the fused kernel computes and the
-     rectangle's are printed beside them.
+     rectangle's are printed beside them.  Then the join kernels against
+     their plain versions on every query (lo, hi, uncovered):
+     bucket_join on an index with bucket rows of every count 0..8, both
+     kinds of escape and the edge words; window_join at windows 8 to 128
+     with an uncovered run; 1, 255 and 257 queries.
   4. cuda vs cpu: a small FASTA DB, taxonomy and paired FASTQ made from
      --seed, run by the port's CLI on cuda and on cpu: classification;
      --sam-file on paired reads; --just-align --sam-file on single-end
@@ -46,6 +53,11 @@ Phases (each prints its own line; any failure exits non-zero):
      finished with --resume.  Every output (SAM without @PG) must be
      byte-identical between the devices, every cuda run must launch the
      kernel, and the resumed run must equal an uninterrupted one.
+     Phases 4-10 also count each path's join kernel launches (reset just
+     before the run, read just after): every path on the card must join
+     through the kernel of its table (bucket_join with the bucket table;
+     window_join on a mesh and with --no-prefix-rows) and launch the
+     other none; the cpu runs launch neither.
   5. real size: the 1.6 Gbp synthetic DB of the reference package's
      bench (16 genomes x 100 Mbp, ~1e8 stride-16 index k-mers) and
      262,144 planted 150 bp reads (131,072 pairs, 1% mutations) through
@@ -88,16 +100,23 @@ Phases (each prints its own line; any failure exits non-zero):
      the planted truth: its species-correct count must equal the run's
      own count, and McNemar between depths 1 and 3 must find 0
      discordant reads.
- 10. join backends: phase 5's DB and the k-mers of all its reads at
-     once, through ops/match.join_bounds with (a) the exact search
-     (searchsorted_both), (b) the bucket table + tier 2, (c) the prefix
-     window + tier 2, timed with CUDA events in turns (a, b, c, c, b, a,
-     three times): ms, peak device memory over the call, table bytes,
-     the share of kept queries sent to tier 2, the bytes bound, and the
-     device time by op of one call of each under torch.profiler; (b)
-     and (c) must give (a)'s (lo, hi) on every kept query.  Then one
-     --no-prefix-rows CLI run on cuda (the prefix window on the path),
-     byte-identical to phase 5's.  Its numbers are printed as one
+ 10. join kernels: phase 5's DB and the k-mers of all its reads at
+     once (31.7 M query positions at the default size): bucket_join
+     (lookup_bucket) and window_join (lookup_prefix_window) must equal
+     their plain versions on every query, and ops/match.join_bounds
+     through each (tier 2 included) the exact search
+     (searchsorted_both, the library call) on every kept query.  The
+     seven calls (exact search; each kernel, its plain version and its
+     join_bounds) are timed with CUDA events in turns (the order, then
+     reversed, three times): ms, peak device memory over the call, each
+     kernel's bytes bound (the keys, the distinct table rows or index
+     keys and pstart entries the queries read, the outputs) and share,
+     the share of kept queries sent to tier 2, tier 2's time
+     (join_bounds less the kernel alone), and the device time by op of
+     one profiled join_bounds call each (the profiler can drop some
+     kernels' records; tier 2's time above does not depend on it).
+     Then one --no-prefix-rows CLI run on cuda (window_join on the
+     path), byte-identical to phase 5's.  Its numbers are printed as one
      {"join": ...} JSON line.
 Phase 4 also runs, on cuda, --mesh 2x2 (classification), --mesh 1x4
 --shard-genomes --sam-file, and two processes of --coordinator
@@ -107,8 +126,10 @@ with --mesh 2x2 on cuda at both depths, against the cpu run of the same
 chunks.  Each must launch the kernel and write what the single-device
 CPU run wrote (the two-process SAM compared as one header and its body
 lines sorted).
-The line before the last is a JSON object describing each kernel, the
-last line the contract object {"ok": true, "device": {...}}.
+The last three lines are the card's name and power limit (nvidia-smi),
+a JSON object describing each kernel (the SW kernels and the join
+kernels, each with its launches on its paths), and the contract object
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -283,6 +304,20 @@ def sass_step_loops(lib_path: str, rows: int, align: bool):
     return None
 
 
+def ptxas_report(build_log: str):
+    """[(kernel, "Used N registers ...; ... spill ...")] from nvcc's
+    -Xptxas -v output, one entry per compiled kernel."""
+    out, func = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            func = m.group(1)
+            out.append([func, []])
+        elif func and ("registers" in line or "spill" in line):
+            out[-1][1].append(line.split(":", 1)[-1].strip())
+    return [(f, "; ".join(info)) for f, info in out]
+
+
 def max_abs_err(a, b) -> int:
     return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
                if len(x) else 0 for x, y in zip(a, b))
@@ -391,6 +426,49 @@ def phase_kernel(rng, dev, b: int = 32768):
         f"sw_forward B={b} Lq={lq} Lr={lr} ({cfg.group} threads x "
         f"{cfg.rows} rows per alignment)", ms, plain_ms, cells, nbytes)
     return worst, ms, plain_ms, bound
+
+
+def phase_join_kernels(rng, dev) -> None:
+    """The join kernels against their plain versions on the card, on
+    every query (lo, hi, uncovered), beside phase 10's full-size run:
+    bucket_join on an index whose table has rows of every count 0..8,
+    both kinds of escape and the edge words; window_join at w = 8 to 128
+    with an uncovered run; query counts 1, 255 and 257 (off the block)."""
+    from kslam_tpu_torch.db.kmer_index import KmerIndex
+    from kslam_tpu_torch.eval import join_cases
+    from kslam_tpu_torch.ops import join, join_cuda, kmers
+    words = join_cases.bucket_index_words(rng)
+    z = np.zeros(len(words), np.int32)
+    tbl, bits = KmerIndex(words, z, z, np.zeros(len(words), bool)) \
+        .bucket_table()
+    d_tbl = torch.from_numpy(tbl).to(dev)
+    cases = [("bucket_join", words, lambda q: (
+        join.lookup_bucket(d_tbl, q, bits),
+        join.lookup_bucket_plain(d_tbl, q, bits)))]
+    for pbits, window in ((10, 8), (8, 16), (9, 32), (10, 64), (12, 128)):
+        km, padded, pstart = join_cases.prefix_index_words(rng, pbits, window)
+        keys = torch.as_tensor(kmers.keys_from_words_np(padded)).to(dev)
+        d_pstart = torch.as_tensor(pstart).to(dev)
+        cases.append((f"window_join w={window}", km, lambda q, k=keys,
+                      p=d_pstart, b=pbits, w=window: (
+            join.lookup_prefix_window(k, p, q, b, w),
+            join.lookup_prefix_window_plain(k, p, q, b, w))))
+    for name, index_words, run in cases:
+        q_all = torch.as_tensor(kmers.keys_from_words_np(
+            join_cases.queries_for(index_words, rng))).to(dev)
+        for n in (q_all.numel(), 1, 255, 257):
+            before = sum(join_cuda.JOIN_LAUNCHES.values())
+            got, plain = run(q_all[:n])
+            torch.cuda.synchronize()
+            launched = sum(join_cuda.JOIN_LAUNCHES.values()) - before
+            err = max_abs_err(got, plain)
+            if err or launched != 1:
+                raise AssertionError(f"{name}, {n} queries: max abs err "
+                                     f"{err}, {launched} launches")
+            if n == q_all.numel():
+                uncovered = int((got[2] > 0).sum())
+        log(f"  {name}: equal to the plain version on all {q_all.numel()} "
+            f"queries ({uncovered} uncovered) and at 1, 255, 257 queries")
 
 
 def copied_reads(rng, genome, starts, rc, l: int):
@@ -807,22 +885,28 @@ def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
                     sam: bool):
     """The same CLI run on cpu and on cuda: outputs byte-identical, the
     kernel launched on cuda only.  Returns the cuda run's files."""
-    from kslam_tpu_torch.ops import sw_cuda
+    from kslam_tpu_torch.ops import join_cuda, sw_cuda
     outs = {}
     for device in ("cpu", "cuda"):
         out = os.path.join(tmp, f"small_{name}_{device}")
         extra = list(flags) + (["--sam-file", out + ".sam"] if sam else [])
         before, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+        join_before = dict(join_cuda.JOIN_LAUNCHES)
         secs = run_cli(db, out, r1, r2, device, extra)
         launched = sw_cuda.LAUNCHES - before
         fused = sw_cuda.ALIGN_LAUNCHES - fused
+        joins = {k: v - join_before[k]
+                 for k, v in join_cuda.JOIN_LAUNCHES.items()}
         outs[device] = read_outputs(out, sam)
         log(f"  {name} {device}: {secs:.2f} s, {launched} SW kernel "
             f"launches")
         if device == "cuda":
             check_fused(f"{name} cuda", launched, fused)
-        elif launched:
-            raise AssertionError(f"{name}: {launched} SW launches on cpu")
+            check_join(f"{name} cuda", joins, "bucket_join",
+                       path=f"small_{name}")
+        elif launched or any(joins.values()):
+            raise AssertionError(f"{name}: {launched} SW launches, join "
+                                 f"launches {joins} on cpu")
     sizes = [len(x) for x in outs["cuda"]]
     same = outs["cpu"] == outs["cuda"]
     log(f"  {name}: outputs byte-identical between cuda and cpu: {same} "
@@ -837,13 +921,18 @@ def run_mesh_cuda(tmp: str, db: str, name: str, r1: str, r2, flags,
                   sam: bool, want) -> int:
     """One CLI run on cuda with `flags` (a mesh, a chunk-pipeline depth);
     its files must equal `want` (the single-device CPU run's files),
-    every SW launch fused.  Returns its fused sw_align launches."""
+    every SW launch fused, every join through the kernel of its table
+    (window_join per mesh shard, else bucket_join).  Returns its fused
+    sw_align launches."""
     from kslam_tpu_torch.ops import sw_cuda
     out = os.path.join(tmp, f"small_{name}_cuda")
     extra = list(flags) + (["--sam-file", out + ".sam"] if sam else [])
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
+    zero_join_launches()
     secs = run_cli(db, out, r1, r2, "cuda", extra)
     launched, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    check_join(name, join_launches(), "window_join" if "--mesh" in flags
+               else "bucket_join", path=f"small_{name}")
     same = read_outputs(out, sam) == want
     log(f"  {name} cuda: {secs:.2f} s, {launched} SW kernel launches; "
         f"outputs byte-identical to the single-device CPU run: {same}")
@@ -853,15 +942,17 @@ def run_mesh_cuda(tmp: str, db: str, name: str, r1: str, r2, flags,
     return fused
 
 
-# a port CLI process that reports its SW launches and fused sw_align
-# launches on stdout
+# a port CLI process that reports its SW launches, fused sw_align
+# launches and join kernel launches on stdout
 _CLI_PROCESS = (
     "import sys\n"
     "from kslam_tpu_torch import cli\n"
-    "from kslam_tpu_torch.ops import sw_cuda\n"
+    "from kslam_tpu_torch.ops import join_cuda, sw_cuda\n"
     "rc = cli.main(sys.argv[1:])\n"
     "print('SW launches', sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES,\n"
     "      flush=True)\n"
+    "print('join launches', join_cuda.JOIN_LAUNCHES['bucket_join'],\n"
+    "      join_cuda.JOIN_LAUNCHES['window_join'], flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -873,9 +964,11 @@ def free_port() -> int:
 
 def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
                       name: str = "small_two_process_cuda",
-                      visible=None) -> int:
+                      visible=None, join_kernel: str = "bucket_join") -> int:
     """--coordinator localhost:PORT --num-processes 2 on cuda; returns
-    the processes' fused sw_align launches (every SW launch fused).  visible: each process's
+    the processes' fused sw_align launches (every SW launch fused, every
+    join through join_kernel: window_join where a process's cards form a
+    local mesh).  visible: each process's
     CUDA_VISIBLE_DEVICES (None: both see every card).  The outputs must
     equal `want` ([SAM without @PG, XML, _PerRead, _abbreviated]), the
     SAM as one header and its sorted body lines."""
@@ -903,14 +996,17 @@ def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
                 p.kill()
                 p.communicate()
     secs = time.perf_counter() - t0
-    launches, fused = [], []
+    launches, fused, joins = [], [], []
     for pid, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
         m = re.search(r"SW launches (\d+) (\d+)", stdout)
-        if p.returncode != 0 or m is None:
+        j = re.search(r"join launches (\d+) (\d+)", stdout)
+        if p.returncode != 0 or m is None or j is None:
             raise AssertionError(f"process {pid} exited {p.returncode}:\n"
                                  f"{stderr[-3000:]}")
         launches.append(int(m.group(1)))
         fused.append(int(m.group(2)))
+        joins.append({"bucket_join": int(j.group(1)),
+                      "window_join": int(j.group(2))})
 
     def split_sam(text: bytes):
         lines = text.splitlines(keepends=True)
@@ -930,6 +1026,8 @@ def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
                              "or launched no SW kernel in a process")
     for pid in range(2):
         check_fused(f"{name} process {pid}", launches[pid], fused[pid])
+        check_join(f"{name} process {pid}", joins[pid], join_kernel)
+    JOIN_PATHS[name] = {join_kernel: sum(j[join_kernel] for j in joins)}
     return sum(fused)
 
 
@@ -1009,7 +1107,9 @@ def phase_e2e_small(rng, tmp: str) -> None:
     # three chunks of 200 pairs: process 0 takes chunks 0 and 2, process 1
     # chunk 1
     launches["two_process"] = run_two_processes(
-        tmp, db, s1, s2, ["--num-reads-at-once", "200"], full)
+        tmp, db, s1, s2, ["--num-reads-at-once", "200"], full,
+        join_kernel="window_join" if torch.cuda.device_count() > 1
+        else "bucket_join")
     out = os.path.join(tmp, "small_resumed_cuda")
     flags = flags + ["--sam-file", out + ".sam"]
     real = run_mod.process_chunk
@@ -1052,6 +1152,36 @@ def check_fused(name: str, launches: int, fused: int, expect=None) -> None:
                              f"fused")
 
 
+# each path's join kernel launches on the card, for the kernels line
+JOIN_PATHS = {}
+
+
+def join_launches() -> dict:
+    from kslam_tpu_torch.ops import join_cuda
+    return dict(join_cuda.JOIN_LAUNCHES)
+
+
+def zero_join_launches() -> None:
+    from kslam_tpu_torch.ops import join_cuda
+    for k in join_cuda.JOIN_LAUNCHES:
+        join_cuda.JOIN_LAUNCHES[k] = 0
+
+
+def check_join(name: str, launched: dict, kernel: str, path=None) -> None:
+    """Every join of a path on the card went through `kernel`, the
+    lookup of the path's table (bucket_join with the bucket table,
+    window_join with the prefix window): at least one launch of it and
+    none of the other.  path: the name the kernels line lists it under."""
+    other = "window_join" if kernel == "bucket_join" else "bucket_join"
+    log(f"  {name}: {launched[kernel]} {kernel} launches, "
+        f"{launched[other]} {other} launches")
+    if launched[kernel] == 0 or launched[other] != 0:
+        raise AssertionError(f"{name}: join launches {launched}, expected "
+                             f"{kernel} only")
+    if path is not None:
+        JOIN_PATHS[path] = {kernel: launched[kernel]}
+
+
 def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     """The real-size run; returns (its SW launches, fused launches and
     rectangle cells, and the DB, reads and planted truth for phases 6-8).
@@ -1085,10 +1215,13 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
+    zero_join_launches()
     out = os.path.join(tmp, "real_out")
     wall = run_cli(db, out, os.path.join(tmp, "r1.fq"),
                    os.path.join(tmp, "r2.fq"), "cuda")
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    check_join("the main path", join_launches(), "bucket_join",
+               path="device_pipeline")
     cells = sw_cuda.LAUNCH_CELLS
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
@@ -1128,10 +1261,12 @@ def phase_sam(ctx, tmp: str):
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
+    zero_join_launches()
     out = os.path.join(tmp, "real_sam")
     wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
                    ["--sam-file", out + ".sam"])
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    check_join("the SAM path", join_launches(), "bucket_join", path="sam")
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
     first = {}            # read name -> (RNAME, POS) of its R1 primary line
@@ -1176,10 +1311,13 @@ def phase_host_path(ctx, tmp: str, n_pairs: int):
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
+    zero_join_launches()
     out = os.path.join(tmp, "real_host_path")
     wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
                    ["--device-pipeline", "off", "--num-reads", str(n_pairs)])
     launches, through_align = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    check_join("the host-object path", join_launches(), "bucket_join",
+               path="host_object_path")
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
     per_read = dict(line.split("\t") for line in
@@ -1217,10 +1355,13 @@ def phase_mesh(ctx, tmp: str, shape: str = "2x2", expect=None):
     for dev in devs:
         torch.cuda.reset_peak_memory_stats(dev)
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
+    zero_join_launches()
     out = os.path.join(tmp, f"real_mesh_{shape}")
     wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
                    ["--mesh", shape, "--shard-genomes"])
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    check_join("the mesh path", join_launches(), "window_join",
+               path=f"mesh_{shape}_shard_genomes")
     cells = sw_cuda.LAUNCH_CELLS
     peaks = {str(d): torch.cuda.max_memory_allocated(d) for d in devs}
     stages = metrics.summary()
@@ -1302,11 +1443,15 @@ def phase_pipeline(ctx, tmp: str, chunk_pairs: int, expect=None):
         metrics.reset()
         torch.cuda.reset_peak_memory_stats()
         sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
+        zero_join_launches()
         out = os.path.join(tmp, f"pipeline_{turn}_d{depth}")
         wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
                        chunk + (["--no-chunk-overlap"] if depth == 1
                                 else []))
         launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+        check_join(f"chunk pipeline depth {depth} turn {turn}",
+                   join_launches(), "bucket_join",
+                   path=f"chunk_pipeline_depth{depth}")
         peak = torch.cuda.max_memory_allocated()
         stages = metrics.summary()
         loop_s = wall - stages.get("db_load", {}).get("seconds", 0.0)
@@ -1396,14 +1541,46 @@ def phase_pipeline(ctx, tmp: str, chunk_pairs: int, expect=None):
 HBM_RATE = 3.35e12
 
 
+def join_bytes(q, d_keys, d_tbl, bbits: int, d_pstart, bits: int,
+               window: int):
+    """The least bytes each join kernel moves on these queries, each
+    input read once and each output written once: the 8 B keys, the
+    distinct table rows (64 B) or the distinct pstart entries (4 B) and
+    index keys (8 B) their windows cover, and 20 B of outputs per query.
+    Also the per-query count with no row shared (92 B; 8 + 8 + 16w + 20
+    B).  Returns {kernel: (bytes, per-query bytes)}."""
+    from kslam_tpu_torch.ops import join
+    n_q = q.numel()
+    rows = int(torch.unique(join._bucket_of(q, bbits)).numel())
+    p = join._prefix(q, bits)
+    r = d_pstart[p].to(torch.int64) // window
+    seen = torch.zeros(d_keys.shape[0] // window + 1, dtype=torch.bool,
+                       device=q.device)
+    seen[r] = True
+    seen[r + 1] = True
+    pseen = torch.zeros(d_pstart.shape[0], dtype=torch.bool,
+                        device=q.device)
+    pseen[p] = True
+    pseen[p + 1] = True
+    keys_read = int(seen.sum()) * window
+    entries = int(pseen.sum())
+    return {"bucket_join": (n_q * 28 + rows * 64, n_q * 92),
+            "window_join": (n_q * 28 + entries * 4 + keys_read * 8,
+                            n_q * (36 + 16 * window))}
+
+
 def phase_join(ctx, tmp: str, dev):
-    """The join's three backends on phase 5's DB and the k-mers of all
-    its reads at once, timed with CUDA events in turns: (a) the exact
-    search (searchsorted_both, the join without a table), (b) the bucket
-    table + tier 2, (c) the prefix window + tier 2, each through
-    ops/match.join_bounds as expand_seeds calls it.  (lo, hi) of (b) and
-    (c) must equal (a)'s on every query the path keeps (q_ok).  Then one
-    --no-prefix-rows CLI run on the card, byte-identical to phase 5's.
+    """The join's kernels on phase 5's DB and the k-mers of all its reads
+    at once: bucket_join (lookup_bucket on the card) and window_join
+    (lookup_prefix_window) against their plain versions on every query
+    (lo, hi, uncovered); match.join_bounds through each (tier 2
+    included) against the exact search (searchsorted_both, the library
+    call) on every kept query (q_ok); all seven timed with CUDA events
+    in turns (the order, then reversed, three times): ms, peak device
+    memory over the call, the kernels' bytes bound and share, tier 2's
+    share of kept queries, and the device time by op of one profiled
+    join_bounds call each.  Then one --no-prefix-rows CLI run on the
+    card (window_join on the path), byte-identical to phase 5's.
     Returns the JSON-able numbers."""
     from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
     from kslam_tpu_torch.io.fastq import stream_read_batches
@@ -1415,14 +1592,8 @@ def phase_join(ctx, tmp: str, dev):
     m = len(kidx)
     del kidx
     d_keys = torch.as_tensor(keys).to(dev)
-    tables = {
-        "searchsorted_both": {},
-        "bucket": dict(idx_bucket=torch.from_numpy(np.array(tbl)).to(dev),
-                       bucket_bits=bbits),
-        "prefix_window": dict(idx_pstart=torch.as_tensor(pstart).to(dev),
-                              prefix_bits=bits, window=window)}
-    table_bytes = {"searchsorted_both": 0, "bucket": int(tbl.nbytes),
-                   "prefix_window": int(pstart.nbytes)}
+    d_tbl = torch.from_numpy(np.array(tbl)).to(dev)
+    d_pstart = torch.as_tensor(pstart).to(dev)
     del tbl, keys
     n_pairs = len(ctx["g"])
     batch = next(stream_read_batches(ctx["r1"], ctx["r2"], n_pairs,
@@ -1441,38 +1612,52 @@ def phase_join(ctx, tmp: str, dev):
         f"{batch.num_reads} reads at once: {n_q} query positions, {n_ok} "
         f"kept (valid, not the zero k-mer)")
 
-    def call(name):
-        return match.join_bounds(q, q_ok, d_keys, **tables[name])
+    bucket = dict(idx_bucket=d_tbl, bucket_bits=bbits)
+    prefix = dict(idx_pstart=d_pstart, prefix_bits=bits, window=window)
+    calls = {
+        "searchsorted_both": lambda: join.searchsorted_both(d_keys, q),
+        "bucket_join": lambda: join.lookup_bucket(d_tbl, q, bbits),
+        "bucket_plain": lambda: join.lookup_bucket_plain(d_tbl, q, bbits),
+        "bucket_join_bounds": lambda: match.join_bounds(q, q_ok, d_keys,
+                                                        **bucket),
+        "window_join": lambda: join.lookup_prefix_window(
+            d_keys, d_pstart, q, bits, window),
+        "window_plain": lambda: join.lookup_prefix_window_plain(
+            d_keys, d_pstart, q, bits, window),
+        "window_join_bounds": lambda: match.join_bounds(q, q_ok, d_keys,
+                                                        **prefix)}
 
-    want = call("searchsorted_both")
-    escaped = {"searchsorted_both": 0}
-    for name in ("bucket", "prefix_window"):
-        lo, hi = call(name)
-        same = all(torch.equal(torch.where(q_ok, a, 0),
-                               torch.where(q_ok, b, 0))
-                   for a, b in zip((lo, hi), want))
-        del lo, hi
-        t = tables[name]
-        unc = join.lookup_bucket(t["idx_bucket"], q, bbits)[2] \
-            if name == "bucket" else join.lookup_prefix_window(
-                d_keys, t["idx_pstart"], q, bits, window)[2]
-        escaped[name] = int((q_ok & (unc > 0)).sum())
-        del unc
-        log(f"  {name}: (lo, hi) equal to searchsorted_both's on the "
-            f"{n_ok} kept queries: {same}; {escaped[name]} kept queries "
-            f"to tier 2 ({escaped[name] / n_ok:.6%})")
-        if not same:
-            raise AssertionError(f"{name}: the join differs from the "
-                                 f"exact search")
+    want = calls["searchsorted_both"]()
+    checks = {}
+    for kernel in ("bucket_join", "window_join"):
+        table = kernel.split("_")[0]
+        got = calls[kernel]()
+        plain = calls[f"{table}_plain"]()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        same = all(torch.equal(a, b) for a, b in zip(got, plain))
+        to_tier2 = int((q_ok & (got[2] > 0)).sum())
+        del got, plain
+        bounds = calls[f"{table}_join_bounds"]()
+        exact = all(torch.equal(torch.where(q_ok, a, 0),
+                                torch.where(q_ok, b, 0))
+                    for a, b in zip(bounds, want))
+        del bounds
+        checks[kernel] = dict(max_abs_err=err, to_tier2=to_tier2)
+        log(f"  {kernel}: (lo, hi, uncovered) equal to the plain "
+            f"version's on all {n_q} queries: {same} (max abs err {err}); "
+            f"join_bounds through it equal to searchsorted_both on the "
+            f"{n_ok} kept queries: {exact}; {to_tier2} kept queries to "
+            f"tier 2 ({to_tier2 / n_ok:.6%})")
+        if not same or not exact:
+            raise AssertionError(f"{kernel}: the kernel differs from its "
+                                 f"plain version or the exact search")
     del want
-    # the least bytes each backend moves: the queries, the table rows it
-    # reads (the exact search: the index once), the two int64 bounds
-    moved = {"searchsorted_both": n_q * 24 + m * 8,
-             "bucket": n_q * (24 + 64),
-             "prefix_window": n_q * (24 + 8 + 2 * window * 8)}
-    times = {k: [] for k in tables}
-    peaks = {k: 0 for k in tables}
-    order = ["searchsorted_both", "bucket", "prefix_window"]
+    moved = join_bytes(q, d_keys, d_tbl, bbits, d_pstart, bits, window)
+
+    times = {k: [] for k in calls}
+    peaks = {k: 0 for k in calls}
+    order = list(calls)
     for name in (order + order[::-1]) * 3:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1480,63 +1665,94 @@ def phase_join(ctx, tmp: str, dev):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = call(name)
+        out = calls[name]()
         end.record()
         torch.cuda.synchronize()
         times[name].append(start.elapsed_time(end))
         peaks[name] = max(peaks[name],
                           torch.cuda.max_memory_allocated() - base)
         del out
-    # one call of each backend under torch.profiler: device time by op
+    # device time by op of one profiled call of each join_bounds and of
+    # the exact search: the profiler's schedule records the second of two
+    # calls, once (repeat=1: no later warm-up cycle replaces the record)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     by_op = {}
-    for name in order:
-        with torch.profiler.profile(activities=acts) as prof:
-            out = call(name)
-            torch.cuda.synchronize()
-        del out
+    for name in ("bucket_join_bounds", "window_join_bounds",
+                 "searchsorted_both"):
+        with torch.profiler.profile(
+                activities=acts, schedule=torch.profiler.schedule(
+                    wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                out = calls[name]()
+                torch.cuda.synchronize()
+                del out
+                prof.step()
         ops = []
         for e in prof.key_averages():
+            # the device's own events (kernels, copies): the operators
+            # and the profiler step that launched them repeat their time
+            if not str(getattr(e, "device_type", "")).endswith("CUDA") \
+                    or e.key.startswith("ProfilerStep"):
+                continue
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = getattr(e, "self_cuda_time_total", 0)
             if t > 0:
-                ops.append((e.key, e.count, t / 1e3))
+                ops.append((e.key[:100], e.count, t / 1e3))
         ops.sort(key=lambda x: -x[2])
-        by_op[name] = ops[:8]
-        total = sum(x[2] for x in ops)
+        by_op[name] = ops[:10]
         if not ops:
             log(f"  {name} device time by op: not measured (the trace "
                 f"holds no device time)")
             continue
         log(f"  {name} device time by op (one profiled call, "
-            f"{total:.4f} ms in all): " + "; ".join(
-                f"{k} x{c} {ms:.4f} ms" for k, c, ms in ops[:8]))
+            f"{sum(x[2] for x in ops):.4f} ms in all): " + "; ".join(
+                f"{k} x{c} {ms:.4f} ms" for k, c, ms in ops[:10]))
     result = {}
     for name in order:
         ms = sum(times[name]) / len(times[name])
-        result[name] = dict(
-            ms=ms, ms_turns=times[name], peak_bytes=peaks[name],
-            table_bytes=table_bytes[name], queries=n_q, kept=n_ok,
-            to_tier2=escaped[name], to_tier2_share=escaped[name] / n_ok,
-            bytes_bound_ms=moved[name] / HBM_RATE * 1e3,
-            top_ops_ms=by_op[name])
-        log(f"  {name}: {ms:.4f} ms mean of {len(times[name])} in turns "
-            f"{[round(t, 4) for t in times[name]]}; peak over the call "
-            f"{peaks[name]} B above the {table_bytes[name]} B table; "
-            f"bytes bound {result[name]['bytes_bound_ms']:.4f} ms")
-    del tables, d_keys, q, q_ok
+        result[name] = dict(ms=ms, ms_turns=times[name],
+                            peak_bytes=peaks[name])
+        line = (f"  {name}: {ms:.4f} ms mean of {len(times[name])} in turns "
+                f"{[round(t, 4) for t in times[name]]}; peak over the call "
+                f"{peaks[name]} B")
+        if name.endswith("_bounds"):
+            # tier 2 and its put-back: join_bounds less the kernel alone
+            tier2 = ms - result[name[:-len("_bounds")]]["ms"]
+            result[name]["tier2_ms"] = tier2
+            line += f"; tier 2 and put-back {tier2:.4f} ms of it"
+        if name in moved:
+            nbytes, per_query = moved[name]
+            bound = nbytes / HBM_RATE * 1e3
+            result[name].update(
+                checks[name], bytes=nbytes, bound_ms=bound,
+                bound_share=bound / ms,
+                per_query_bound_ms=per_query / HBM_RATE * 1e3)
+            line += (f"; bytes bound {bound:.4f} ms ({nbytes} B: the rows "
+                     f"these queries read, each once), {bound / ms:.2%} of "
+                     f"it; with no row shared "
+                     f"{result[name]['per_query_bound_ms']:.4f} ms")
+        log(line)
+    result.update(queries=n_q, kept=n_ok, index_keys=m, bucket_bits=bbits,
+                  prefix_bits=bits, window=window, top_ops_ms=by_op,
+                  table_bytes={"bucket": int(d_tbl.nbytes),
+                               "prefix_window": int(d_pstart.nbytes)})
+    # the tables and queries go before the CLI run, whose peak is its own
+    del calls, bucket, prefix, d_tbl, d_pstart, d_keys, q, q_ok, lengths
 
     # --no-prefix-rows on the card: the prefix window and tier 2 on the
     # CLI path, no bucket table
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
+    zero_join_launches()
     out = os.path.join(tmp, "real_no_prefix_rows")
     wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], dev.type,
                    ["--no-prefix-rows"])
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    check_join("the --no-prefix-rows path", join_launches(), "window_join",
+               path="no_prefix_rows")
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
     same = read_outputs(out, sam=False) == read_outputs(ctx["out"],
@@ -1558,6 +1774,34 @@ def phase_join(ctx, tmp: str, dev):
     return result
 
 
+def join_kernel_entries(joins: dict):
+    """The kernels line's entries of the join kernels: launches on each
+    one's own path (bucket_join on the main path, window_join with
+    --no-prefix-rows) and on every path (JOIN_PATHS), times, bound and
+    the exact search's time (library_ms) from phase 10's `joins`."""
+    entries = []
+    for kernel, main_path, line in (
+            ("bucket_join", "device_pipeline", 146),
+            ("window_join", "no_prefix_rows", 244)):
+        j = joins[kernel]
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "kslam_tpu_torch/csrc/join.cu",
+            "replaces": f"kslam_tpu/ops/join.py:{line}",
+            "launches": JOIN_PATHS[main_path][kernel],
+            "launches_by_path": {p: c[kernel] for p, c in JOIN_PATHS.items()
+                                 if kernel in c},
+            "max_abs_err": j["max_abs_err"], "ms": j["ms"],
+            "plain_ms": joins[kernel.replace("join", "plain")]["ms"],
+            "bound_ms": j["bound_ms"], "bound_by": "bytes",
+            "bound_share": j["bound_share"],
+            "per_query_bound_ms": j["per_query_bound_ms"],
+            "join_bounds_ms": joins[f"{kernel}_bounds"]["ms"],
+            "queries": joins["queries"],
+            "library_ms": joins["searchsorted_both"]["ms"]})
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1574,7 +1818,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     from kslam_tpu_torch.io import native
-    from kslam_tpu_torch.ops import sw_cuda
+    from kslam_tpu_torch.ops import cuda_lib, sw_cuda
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1584,18 +1828,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        sw_build = pool.submit(sw_cuda.load_library)
+        cuda_build = pool.submit(cuda_lib.load_library)
         host_build = pool.submit(native.get_lib)
-        sw_build.result()
+        lib_path = cuda_build.result()._name
         host_lib = host_build.result()
-    log(f"phase 2 build: SW kernel and native host library built in "
+    log(f"phase 2 build: the CUDA kernel library (SW and join kernels, one "
+        f"nvcc per source) and the native host library built in "
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
-    for line in sw_cuda.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for func, info in ptxas_report(cuda_lib.BUILD_LOG):
+        log(f"  ptxas: {func}: {info}")
     rows = sw_cuda.launch_config(32768, 160, 192).rows
     for kname, align in (("sw_forward", False), ("sw_align", True)):
-        loops = sass_step_loops(sw_cuda.load_library()._name, rows, align)
+        loops = sass_step_loops(lib_path, rows, align)
         if not loops:
             log(f"  {kname} SASS instructions per cell: not measured (no "
                 f"cuobjdump, or no step loop found)")
@@ -1612,8 +1856,9 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     log("phase 3 kernels vs their plain versions on the card")
     err, ms, plain_ms, bound = phase_kernel(rng, dev)
-    # a generator of its own: phases 4-5 draw their data from rng alone
+    # generators of their own: phases 4-5 draw their data from rng alone
     align = phase_align(np.random.default_rng(args.seed + 1), dev)
+    phase_join_kernels(np.random.default_rng(args.seed + 2), dev)
     # the fused launches of the 1.6 Gbp runs: one per batch of 32,768
     # candidates
     expect = 4 if (args.mbp, args.pairs) == (1600, 131072) else None
@@ -1644,8 +1889,8 @@ def main() -> int:
         pipe_fused = phase_pipeline(ctx, tmp, chunk_pairs, expect)
         log(f"phase 10 join backends: phase 5's DB and its "
             f"{2 * args.pairs} reads' k-mers at once")
-        join_numbers = phase_join(ctx, tmp, dev)
-        log(f"  join: {json.dumps({'join': join_numbers})}")
+        joins = phase_join(ctx, tmp, dev)
+        log(f"  join: {json.dumps({'join': joins})}")
 
     flat, chunked = align["flat"], align["chunked"]
     kernels = {"kernels": [{
@@ -1680,10 +1925,11 @@ def main() -> int:
         "cells_rectangle": flat["cells_rectangle"],
         "shape": "B=32768 Lq=Lr=160 (flat window)",
         "chunked": chunked, "library_ms": None}]}
+    kernels["kernels"] += join_kernel_entries(joins)
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernels))
     print(smi)
+    print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

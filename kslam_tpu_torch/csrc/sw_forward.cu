@@ -86,6 +86,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kNeg = -(1 << 30);
@@ -383,27 +385,12 @@ cudaError_t launch_rows(const void* q, const void* r, const void* n_valid,
                                       mismatch, go, ge, stream);
 }
 
-// Makes `device` current for a launch and gives the caller back its own
-// current device afterwards: PyTorch's "cuda" means the current device,
-// so a launch on another card of a mesh must not change it.
-struct DeviceGuard {
-  int prev = -1;
-  cudaError_t err;
-  explicit DeviceGuard(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  }
-  ~DeviceGuard() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
-
 template <bool kAlign>
 int launch_entry(const void* q, const void* r, const void* n_valid,
                  void* out, int b, int lq, int lr, int group, int rows,
                  int stride, int threads, int blocks, int smem, int match,
                  int mismatch, int go, int ge, int device, void* stream) {
-  const DeviceGuard guard(device);
+  const kslam::DeviceGuard guard(device);
   cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b <= 0) return 0;

@@ -10,10 +10,10 @@ window), lo == hi == the run's start and the run's length in
 `uncovered`; ops/match.expand_seeds resolves those queries with the
 exact search (tier 2).
 
-  * lookup_bucket: one [Q, 16] int32 row gather from
-    KmerIndex.bucket_table,
-  * lookup_prefix_window: two pstart gathers and one [2 * window] row
-    gather (two aligned rows) of the sentinel-padded index
+  * lookup_bucket: one [Q, 16] int32 row of KmerIndex.bucket_table per
+    query,
+  * lookup_prefix_window: two pstart entries and one [2 * window] row
+    (two aligned rows) of the sentinel-padded index per query
     (KmerIndex.prefix_table),
   * build_prefix_rows / lookup_prefix_rows: the same join on a
     [M/w, 2w] overlapping-rows copy (no path uses this layout; the
@@ -31,8 +31,14 @@ right shifts are masked (they are arithmetic on int64), u32 lanes of the
 int32 table are read as `& 0xFFFFFFFF`, and the CDF bucket map's
 t * t (t < 2^32) is split into 16-bit halves so its floor is exact.
 
-Lookups run over query slices, so the row gathers' temporaries stay
-bounded at any query count (torch materialises what XLA fuses).
+lookup_bucket and lookup_prefix_window check their operands
+(ops/join_cuda.py) and run a CPU tensor through their plain versions,
+lookup_bucket_plain and lookup_prefix_window_plain, and a CUDA tensor
+through the hand-written kernels of csrc/join.cu (bucket_join,
+window_join; join_cuda.JOIN_LAUNCHES counts them); a CUDA tensor never
+falls back, and any other device raises.  The plain versions run over
+query slices, so the row gathers' temporaries stay bounded at any query
+count (torch materialises what XLA fuses).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from ..db.kmer_index import KmerIndex
+from . import join_cuda
 from .kmers import FLIP
 
 ESCAPE = 1 << 30          # a bucket row's count flag: not answered here
@@ -85,6 +92,16 @@ def _bucket_of(queries, bits: int):
 
 
 def lookup_bucket(tbl, queries, bits: int):
+    """(lo, hi, uncovered) via the bucket table (lookup_bucket_plain):
+    the plain version for CPU tensors, the bucket_join kernel for CUDA
+    ones."""
+    if queries.device.type == "cpu":
+        join_cuda.check_bucket(tbl, queries, bits)
+        return lookup_bucket_plain(tbl, queries, bits)
+    return join_cuda.bucket_join(tbl, queries, bits)
+
+
+def lookup_bucket_plain(tbl, queries, bits: int):
     """(lo, hi, uncovered) via the one-gather bucket table
     (KmerIndex.bucket_table: int32 [2^bits, 16] rows of c0 start, c1
     count | ESCAPE, c2 t_base (u32), c3..c6 eight 12-bit t-deltas, two
@@ -142,6 +159,20 @@ def _prefix(q, prefix_bits: int):
 
 def lookup_prefix_window(index_kmers, pstart, queries, prefix_bits: int,
                          window: int):
+    """(lo, hi, uncovered) via prefix direct addressing
+    (lookup_prefix_window_plain): the plain version for CPU tensors, the
+    window_join kernel for CUDA ones."""
+    if queries.device.type == "cpu":
+        join_cuda.check_window(index_kmers, pstart, queries, prefix_bits,
+                               window)
+        return lookup_prefix_window_plain(index_kmers, pstart, queries,
+                                          prefix_bits, window)
+    return join_cuda.window_join(index_kmers, pstart, queries, prefix_bits,
+                                 window)
+
+
+def lookup_prefix_window_plain(index_kmers, pstart, queries,
+                               prefix_bits: int, window: int):
     """(lo, hi, uncovered) via prefix direct addressing: the top
     prefix_bits of a query address pstart (int32 [2^bits + 1], the
     insertion point of each prefix), giving the slice [start, end)

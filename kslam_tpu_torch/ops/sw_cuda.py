@@ -38,29 +38,17 @@ the rectangle cells of the work (B * Lq * Lr per forward launch,
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
 from typing import NamedTuple
 
 import torch
 
+from .cuda_lib import load_library
 from .sw import SWAlignments, SWEnds, _reverse_gather
 
 NEG = -(2 ** 30)
 LAUNCHES = 0          # kernel launches (forward and fused)
 ALIGN_LAUNCHES = 0    # of those, the fused sw_align_batch launches
 LAUNCH_CELLS = 0      # rectangle cells of those launches
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc")
-_SOURCES = ("sw_forward.cu",)
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
-               "-Xcompiler", "-fPIC")
-_LIB = None
-BUILD_LOG = ""        # nvcc/ptxas output of the build this process made
 
 # Row counts per thread instantiated in csrc/sw_forward.cu
 KERNEL_ROWS = (4, 8, 12, 16, 20, 24, 32)
@@ -168,48 +156,6 @@ def sw_forward_batch_plain(q, r, match: int, mismatch: int, gap_open: int,
         ref_end = torch.where(live, ref_end, -1)
         read_end = torch.where(live, read_end, 0)
     return SWEnds(score, ref_end.to(torch.int32), read_end.to(torch.int32))
-
-
-def _build_library():
-    """Compile csrc/sw_forward.cu with nvcc into a shared library with a
-    plain C interface (once per source hash, into csrc/build/) and load
-    it.  A failed build raises."""
-    global BUILD_LOG
-    from torch.utils.cpp_extension import CUDA_HOME
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as fh:
-            digest.update(fh.read())
-    out_dir = os.path.join(_CSRC, "build", digest.hexdigest()[:16])
-    path = os.path.join(out_dir, "libkslam_sw.so")
-    if not os.path.exists(path):
-        if not CUDA_HOME:
-            raise RuntimeError("CUDA toolkit not found: the SW kernel "
-                               "needs nvcc to build")
-        os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *_NVCC_FLAGS,
-               "-o", tmp] + [os.path.join(_CSRC, n) for n in _SOURCES]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{BUILD_LOG}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.kslam_sw_forward, lib.kslam_sw_align):
-        fn.argtypes = [vp, vp, vp, vp] + [ci] * 14 + [vp]
-        fn.restype = ci
-    return lib
-
-
-def load_library():
-    """The built kernel library (built at first use)."""
-    global _LIB
-    if _LIB is None:
-        _LIB = _build_library()
-    return _LIB
 
 
 def _launch(q, r, match, mismatch, gap_open, gap_extend, n_valid,

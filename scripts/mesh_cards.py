@@ -3,7 +3,7 @@
     python3 scripts/mesh_cards.py [--seed N] [--mbp 1600] [--pairs 131072]
                                   [--shapes 2x2,1x4]
 
-Builds the SW kernel and the native host library, then chip_smoke.py's
+Builds the CUDA kernel library and the native host library, then chip_smoke.py's
 phase 5: the 1.6 Gbp synthetic DB, the planted read pairs and their
 single-device classification on cuda:0.  Then, for each mesh shape, the
 same reads with --mesh SHAPE --shard-genomes, the cells cycled over the
@@ -46,11 +46,11 @@ def main() -> int:
         print("mesh_cards: no CUDA device", file=sys.stderr)
         return 1
     from kslam_tpu_torch.io import native
-    from kslam_tpu_torch.ops import sw_cuda
+    from kslam_tpu_torch.ops import cuda_lib
     chip_smoke.log(f"cards: {torch.cuda.device_count()} x "
                    f"{torch.cuda.get_device_name(0)}; nvidia-smi: "
                    f"{chip_smoke.nvidia_smi_line()}")
-    sw_cuda.load_library()
+    cuda_lib.load_library()
     if native.get_lib() is None:
         raise AssertionError(f"no native host library: "
                              f"{native.BUILD_REPORT}")
@@ -58,7 +58,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="kslam_mesh_") as tmp:
         chip_smoke.log(f"single device (chip_smoke.py phase 5): "
                        f"{args.mbp} Mbp DB, {args.pairs} pairs")
-        _, _, ctx = chip_smoke.phase_real(rng, tmp, args.mbp, args.pairs)
+        *_, ctx = chip_smoke.phase_real(rng, tmp, args.mbp, args.pairs)
         for shape in args.shapes.split(","):
             chip_smoke.log(f"mesh {shape} --shard-genomes over "
                            f"{torch.cuda.device_count()} card(s)")
@@ -77,7 +77,8 @@ def main() -> int:
         chip_smoke.run_two_processes(
             tmp, ctx["db"], ctx["r1"], ctx["r2"], flags,
             chip_smoke.read_outputs(ref, sam=True), name="mp_cards",
-            visible=visible)
+            visible=visible,
+            join_kernel="window_join" if half > 1 else "bucket_join")
     chip_smoke.log("mesh_cards: every mesh and two-process run equals its "
                    "single-device run")
     return 0

@@ -2,8 +2,10 @@
 kernels against their plain torch versions (the forward kernel and the
 fused forward + reverse kernel: odd shapes, n_valid, every row-count
 instantiation, wide scores, the chunked windows of the device pipeline),
-the host screen on CUDA against the CPU, the join's three backends
-(bucket table, prefix window, exact search) against each other on CUDA,
+the host screen on CUDA against the CPU, the join's kernels
+(bucket_join, window_join) against their plain versions and the join's
+three backends (bucket table, prefix window, exact search) against each
+other on CUDA,
 the sharded phase A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
 against the CPU, and the CUDA CLI runs (classification and SAM, and
 over four chunks at both chunk-pipeline depths) against the CPU ones.
@@ -26,9 +28,10 @@ from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
 from kslam_tpu_torch.db.host_table import HostTable
 from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
 from kslam_tpu_torch.db.taxonomy import TaxonomyDB
+from kslam_tpu_torch.eval import join_cases
 from kslam_tpu_torch.eval.sw_windows import n_windows
-from kslam_tpu_torch.ops import encode, join, kmers, match, screen, \
-    screens_dev, sw, sw_cuda
+from kslam_tpu_torch.ops import encode, join, join_cuda, kmers, match, \
+    screen, screens_dev, sw, sw_cuda
 from kslam_tpu_torch.parallel import dist
 
 torch.set_num_threads(1)
@@ -561,3 +564,183 @@ def test_join_backends_agree_on_cuda(cuda_device, skewed):
         assert torch.equal(a, b_)
     np.testing.assert_array_equal(results["cpu"][0].numpy(),
                                   np.searchsorted(words, q_words, "left"))
+
+
+def _kernel_vs_plain(kernel, plain, cpu_args, dev, name):
+    """kernel(*args on dev) == plain(*args on dev) == plain(*cpu_args) on
+    every query (lo, hi, uncovered), with one launch of `name` (none for
+    zero queries)."""
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a
+            for a in cpu_args]
+    before = join_cuda.JOIN_LAUNCHES[name]
+    got = kernel(*args)
+    n = args[-3].numel() if name == "window_join" else args[1].numel()
+    assert join_cuda.JOIN_LAUNCHES[name] == before + (n > 0)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    cpu = plain(*cpu_args)
+    for a, b_, c in zip(got, want, cpu):
+        assert a.device.type == "cuda" and a.dtype == c.dtype
+        assert torch.equal(a, b_) and torch.equal(a.cpu(), c)
+    return [x.cpu().numpy() for x in got]
+
+
+def _realistic_index():
+    from kslam_tpu_torch.eval import realistic
+    entries = realistic.make_realistic_entries(n_genomes=2, bp_each=60_000,
+                                               seed=7, plasmid_bp=8_000)
+    return KmerIndex.build(GenbankIndex([
+        GenbankEntry(bases=e.seq.tobytes().decode()) for e in entries]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "edges16", "edges21",
+                                  "realistic"])
+def test_bucket_join_matches_plain(cuda_device, case):
+    """The bucket_join kernel gives lookup_bucket_plain's (lo, hi,
+    uncovered) on every query: random words, the edge words with every
+    bucket count 0..8 and both kinds of escape (tables of 2^16 and 2^21
+    rows), and a repeat-rich eval/realistic index whose pileups escape."""
+    rng = np.random.default_rng(47)
+    bits = None
+    if case == "random":
+        words = np.sort(rng.integers(0, 2**64 - 1, 200_000,
+                                     dtype=np.uint64))
+        kidx = KmerIndex(words, *(np.zeros(len(words), t)
+                                  for t in (np.int32, np.int32, bool)))
+    elif case == "realistic":
+        kidx = _realistic_index()
+        words = kidx.kmers
+    else:
+        bits = int(case[5:])
+        words = join_cases.bucket_index_words(rng, bits=bits)
+        kidx = KmerIndex(words, *(np.zeros(len(words), t)
+                                  for t in (np.int32, np.int32, bool)))
+    tbl, bits = kidx.bucket_table(bits=bits)
+    q = torch.as_tensor(kmers.keys_from_words_np(
+        join_cases.queries_for(words, rng, 100_000)))
+    lo, hi, unc = _kernel_vs_plain(
+        join.lookup_bucket, join.lookup_bucket_plain,
+        [torch.from_numpy(np.array(tbl)), q, bits], cuda_device,
+        "bucket_join")
+    if case != "random":
+        assert (unc > 0).any()
+    assert (unc == 0).mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,window", [(12, 4), (10, 8), (8, 16), (9, 32),
+                                         (10, 64), (12, 128)])
+def test_window_join_matches_plain(cuda_device, bits, window):
+    """The window_join kernel gives lookup_prefix_window_plain's (lo, hi,
+    uncovered) on every query at each group size (G = 4, 8, 16, 32 lanes,
+    1, 2 and 4 steps), an uncovered run included."""
+    rng = np.random.default_rng(53)
+    km, padded, pstart = join_cases.prefix_index_words(rng, bits, window)
+    q = join_cases.queries_for(km, rng)
+    lo, hi, unc = _kernel_vs_plain(
+        join.lookup_prefix_window, join.lookup_prefix_window_plain,
+        [torch.as_tensor(kmers.keys_from_words_np(padded)),
+         torch.as_tensor(pstart),
+         torch.as_tensor(kmers.keys_from_words_np(q)), bits, window],
+        cuda_device, "window_join")
+    covered = unc == 0
+    assert covered.any() and not covered.all()
+    np.testing.assert_array_equal(lo[covered],
+                                  np.searchsorted(km, q[covered], "left"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 4097])
+def test_join_kernels_at_query_counts(cuda_device, n):
+    """Query counts off the block (256 threads; 16 window queries per
+    block at w = 16) and zero queries, which launch nothing; a [1, n]
+    query tensor keeps its shape."""
+    rng = np.random.default_rng(59)
+    words = join_cases.bucket_index_words(rng, n_random=2000)
+    tbl, bits = KmerIndex(words, *(np.zeros(len(words), t) for t in (
+        np.int32, np.int32, bool))).bucket_table()
+    km, padded, pstart = join_cases.prefix_index_words(rng, 8, 16)
+    qw = join_cases.queries_for(words, rng)
+    q = torch.as_tensor(kmers.keys_from_words_np(
+        qw[rng.integers(0, len(qw), n)])).reshape(1, n)
+    _kernel_vs_plain(join.lookup_bucket, join.lookup_bucket_plain,
+                     [torch.from_numpy(tbl), q, bits], cuda_device,
+                     "bucket_join")
+    _kernel_vs_plain(join.lookup_prefix_window,
+                     join.lookup_prefix_window_plain,
+                     [torch.as_tensor(kmers.keys_from_words_np(padded)),
+                      torch.as_tensor(pstart), q, 8, 16], cuda_device,
+                     "window_join")
+
+
+@pytest.mark.cuda
+def test_join_kernels_on_several_tables_and_cards(cuda_device):
+    """Two indexes' tables on one card, queried in turns, each gives its
+    own plain result; on every visible card the launch leaves the
+    caller's current device as it was."""
+    rng = np.random.default_rng(61)
+    cases = []
+    for n_random in (3000, 7000):
+        words = join_cases.bucket_index_words(rng, n_random=n_random)
+        tbl, bits = KmerIndex(words, *(np.zeros(len(words), t) for t in (
+            np.int32, np.int32, bool))).bucket_table()
+        km, padded, pstart = join_cases.prefix_index_words(
+            rng, 9, 32, m=n_random)
+        q = torch.as_tensor(kmers.keys_from_words_np(
+            join_cases.queries_for(words, rng)))
+        cases.append((torch.from_numpy(tbl), bits,
+                      torch.as_tensor(kmers.keys_from_words_np(padded)),
+                      torch.as_tensor(pstart), q))
+    current = torch.cuda.current_device()
+    for k in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", k)
+        for tbl, bits, keys, pstart, q in cases + cases[::-1]:
+            _kernel_vs_plain(join.lookup_bucket, join.lookup_bucket_plain,
+                             [tbl, q, bits], dev, "bucket_join")
+            _kernel_vs_plain(join.lookup_prefix_window,
+                             join.lookup_prefix_window_plain,
+                             [keys, pstart, q, 9, 32], dev, "window_join")
+            assert torch.cuda.current_device() == current
+
+
+@pytest.mark.cuda
+def test_join_bounds_with_the_kernels(cuda_device):
+    """match.join_bounds on the card, through each kernel and its exact
+    tier 2, gives the exact search's (lo, hi) on every kept query of a
+    repeat-rich index's reads, and the CPU's join_bounds on every query."""
+    kidx = _realistic_index()
+    keys, _, pstart, bits, window = join_columns(kidx)
+    tbl, bbits = kidx.bucket_table()
+    rng = np.random.default_rng(67)
+    words = join_cases.queries_for(kidx.kmers, rng, 50_000)
+    q_np = kmers.keys_from_words_np(words)
+    # kept as the path keeps them: not the zero k-mer, and never the
+    # all-ones word (no canonical k-mer is all ones), which the exact
+    # search counts against every sentinel of the padding
+    ok_np = (rng.random(len(q_np)) < 0.95) & (q_np != kmers.FLIP) & \
+        (words != join_cases.ALL_ONES)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        k = torch.as_tensor(keys).to(dev)
+        q = torch.as_tensor(q_np).to(dev)
+        q_ok = torch.as_tensor(ok_np).to(dev)
+        exact = join.searchsorted_both(k, q)
+        tables = {
+            "bucket_join": dict(
+                idx_bucket=torch.from_numpy(np.array(tbl)).to(dev),
+                bucket_bits=bbits),
+            "window_join": dict(idx_pstart=torch.as_tensor(pstart).to(dev),
+                                prefix_bits=bits, window=window)}
+        for name, kw in tables.items():
+            before = dict(join_cuda.JOIN_LAUNCHES)
+            got = match.join_bounds(q, q_ok, k, **kw)
+            launched = join_cuda.JOIN_LAUNCHES[name] - before[name]
+            assert launched == (1 if dev != "cpu" else 0), name
+            for a, b_ in zip(got, exact):
+                assert torch.equal(torch.where(q_ok, a, 0),
+                                   torch.where(q_ok, b_, 0)), name
+            out[(str(dev), name)] = [x.cpu() for x in got]
+    for name in ("bucket_join", "window_join"):
+        for a, b_ in zip(out[("cpu", name)], out[(str(cuda_device), name)]):
+            assert torch.equal(a, b_)

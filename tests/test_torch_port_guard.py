@@ -210,11 +210,20 @@ def test_native_loader_reports_why_it_did_not_build(tmp_path,
 
 
 def test_kernel_wrapper_never_falls_back():
-    """A tensor on neither the CPU nor a CUDA device is refused; the
-    wrappers have no path that swaps in the twin for a device tensor."""
+    """A tensor on neither the CPU nor a CUDA device is refused by the
+    SW and join wrappers; they have no path that swaps in the plain
+    version for a device tensor."""
     from kslam_tpu_torch.ops import sw_cuda
     q = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no SW kernel"):
         sw_cuda.sw_forward_batch(q, q, 2, 3, 5, 2)
     with pytest.raises(ValueError, match="no SW kernel"):
         sw_cuda.sw_align_batch(q, q, 2, 3, 5, 2)
+    from kslam_tpu_torch.ops import join
+    keys = torch.zeros(64, dtype=torch.int64, device="meta")
+    tbl = torch.zeros((1 << 4, 16), dtype=torch.int32, device="meta")
+    pstart = torch.zeros(17, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no join kernel"):
+        join.lookup_bucket(tbl, keys, 4)
+    with pytest.raises(ValueError, match="no join kernel"):
+        join.lookup_prefix_window(keys, pstart, keys, 4, 16)
