@@ -43,7 +43,11 @@ Phases (each prints its own line; any failure exits non-zero):
      their plain versions on every query (lo, hi, uncovered):
      bucket_join on an index with bucket rows of every count 0..8, both
      kinds of escape and the edge words; window_join at windows 8 to 128
-     with an uncovered run; 1, 255 and 257 queries.
+     with an uncovered run, at 4 to 128 on long runs and real all-ones
+     keys, and on a mesh shard's collapsed prefixes; 1, 255 and 257
+     queries; and match.join_bounds through each kernel (one launch)
+     equal to the plain lookup + tier 2 for q_ok all, none and a random
+     half.
   4. cuda vs cpu: a small FASTA DB, taxonomy and paired FASTQ made from
      --seed, run by the port's CLI on cuda and on cpu: classification;
      --sam-file on paired reads; --just-align --sam-file on single-end
@@ -87,8 +91,8 @@ Phases (each prints its own line; any failure exits non-zero):
   9. chunk pipeline: phase 5's DB and reads in 4 chunks of a quarter
      of --pairs each (one device batch each at the default size)
      through the CLI on cuda, --no-chunk-overlap (depth 1) and the
-     default (depth 3) in turns, five runs each (1, 3, 3, 1, 1, 3, 3,
-     1, 1, 3): XML, _PerRead and _abbreviated byte-identical across the
+     default (depth 3) in turns, three runs each (1, 3, 3, 1, 1, 3):
+     XML, _PerRead and _abbreviated byte-identical across the
      runs, >= 99% of pairs
      classified, every SW launch fused; each run prints its wall, its
      wall without db_load, reads/min both ways, its stage seconds and its
@@ -104,20 +108,25 @@ Phases (each prints its own line; any failure exits non-zero):
      once (31.7 M query positions at the default size): bucket_join
      (lookup_bucket) and window_join (lookup_prefix_window) must equal
      their plain versions on every query, and ops/match.join_bounds
-     through each (tier 2 included) the exact search
-     (searchsorted_both, the library call) on every kept query.  The
-     seven calls (exact search; each kernel, its plain version and its
-     join_bounds) are timed with CUDA events in turns (the order, then
-     reversed, three times): ms, peak device memory over the call, each
-     kernel's bytes bound (the keys, the distinct table rows or index
-     keys and pstart entries the queries read, the outputs) and share,
-     the share of kept queries sent to tier 2, tier 2's time
-     (join_bounds less the kernel alone), and the device time by op of
-     one profiled join_bounds call each (the profiler can drop some
-     kernels' records; tier 2's time above does not depend on it).
-     Then one --no-prefix-rows CLI run on cuda (window_join on the
-     path), byte-identical to phase 5's.  Its numbers are printed as one
-     {"join": ...} JSON line.
+     through each (one launch, tier 2 inside) the exact search
+     (searchsorted_both, the library call) on every kept query and the
+     plain lookup + tier 2 and the unfused composition (the kernel,
+     then torch.nonzero, searchsorted_both and index_put) on every
+     query.  Every call (exact search; each kernel, its plain version,
+     join_bounds, the composition and the plain lookup + tier 2) is
+     timed with CUDA events in turns (the order, then reversed, three
+     times): ms, peak device memory over the call, each call's bytes
+     bound (the keys, the distinct table rows, or the distinct pstart
+     entries and run keys the queries read, tier 2's distinct keys, the
+     outputs; beside it window_join's two-row bound, which counts the
+     two rows around each run) and share, and the share of kept
+     queries sent to tier 2.  Then a repeat-rich index (>= 1e7 keys
+     from eval/realistic genomes, built in the run, and the k-mers of
+     reads copied from them; >= 1% of kept queries to tier 2 with the
+     bucket table): the same checks, join_bounds against the
+     composition on both tables in turns.  Then one --no-prefix-rows
+     CLI run on cuda (window_join on the path), byte-identical to phase
+     5's.  Its numbers are printed as one {"join": ...} line.
 Phase 4 also runs, on cuda, --mesh 2x2 (classification), --mesh 1x4
 --shard-genomes --sam-file, and two processes of --coordinator
 localhost:PORT --num-processes 2 sharing the card; and three chunks of
@@ -430,30 +439,50 @@ def phase_kernel(rng, dev, b: int = 32768):
 
 def phase_join_kernels(rng, dev) -> None:
     """The join kernels against their plain versions on the card, on
-    every query (lo, hi, uncovered), beside phase 10's full-size run:
-    bucket_join on an index whose table has rows of every count 0..8,
-    both kinds of escape and the edge words; window_join at w = 8 to 128
-    with an uncovered run; query counts 1, 255 and 257 (off the block)."""
+    every query, beside phase 10's full-size run: bucket_join on an
+    index whose table has rows of every count 0..8, both kinds of escape
+    and the edge words; window_join at w = 8 to 128 with an uncovered
+    run, and at w = 4 to 128 on runs at the run-only read's edges (a
+    long run of 3w + 1 keys, real all-ones keys before the sentinels, the
+    zero word) and on a mesh shard's collapsed prefixes; query counts 1,
+    255 and 257 (off the block).  Each lookup (lo, hi, uncovered) must
+    equal the plain version's, and match.join_bounds through its kernel
+    (one launch, tier 2 inside) the plain lookup + tier 2 on every query
+    for q_ok all, none and a random half."""
     from kslam_tpu_torch.db.kmer_index import KmerIndex
     from kslam_tpu_torch.eval import join_cases
-    from kslam_tpu_torch.ops import join, join_cuda, kmers
+    from kslam_tpu_torch.ops import join, join_cuda, kmers, match
     words = join_cases.bucket_index_words(rng)
     z = np.zeros(len(words), np.int32)
     tbl, bits = KmerIndex(words, z, z, np.zeros(len(words), bool)) \
         .bucket_table()
     d_tbl = torch.from_numpy(tbl).to(dev)
-    cases = [("bucket_join", words, lambda q: (
+    b_keys = torch.as_tensor(kmers.keys_from_words_np(
+        join_cases.sentinel_padded(words, 16))).to(dev)
+    cases = [("bucket_join", words, b_keys, lambda q: (
         join.lookup_bucket(d_tbl, q, bits),
-        join.lookup_bucket_plain(d_tbl, q, bits)))]
-    for pbits, window in ((10, 8), (8, 16), (9, 32), (10, 64), (12, 128)):
-        km, padded, pstart = join_cases.prefix_index_words(rng, pbits, window)
+        join.lookup_bucket_plain(d_tbl, q, bits)),
+        dict(idx_bucket=d_tbl, bucket_bits=bits))]
+    tables = [(f"window_join w={w}", b, w,
+               join_cases.prefix_index_words(rng, b, w))
+              for b, w in ((10, 8), (8, 16), (9, 32), (10, 64), (12, 128))]
+    tables += [(f"window_join w={w} edge runs", b, w,
+                join_cases.run_edge_words(rng, b, w))
+               for b, w in ((8, 4), (8, 8), (8, 16), (7, 32), (6, 64),
+                            (6, 128))]
+    km, _, pstart = join_cases.run_edge_words(rng, 8, 16)
+    tables.append(("window_join w=16 shard", 8, 16, (km, *join_cases
+                   .prefix_shard(km, pstart, len(km) // 3,
+                                 2 * len(km) // 3, 16))))
+    for name, pbits, window, (km, padded, pstart) in tables:
         keys = torch.as_tensor(kmers.keys_from_words_np(padded)).to(dev)
         d_pstart = torch.as_tensor(pstart).to(dev)
-        cases.append((f"window_join w={window}", km, lambda q, k=keys,
-                      p=d_pstart, b=pbits, w=window: (
+        cases.append((name, km, keys, lambda q, k=keys, p=d_pstart,
+                      b=pbits, w=window: (
             join.lookup_prefix_window(k, p, q, b, w),
-            join.lookup_prefix_window_plain(k, p, q, b, w))))
-    for name, index_words, run in cases:
+            join.lookup_prefix_window_plain(k, p, q, b, w)),
+            dict(idx_pstart=d_pstart, prefix_bits=pbits, window=window)))
+    for name, index_words, keys, run, kw in cases:
         q_all = torch.as_tensor(kmers.keys_from_words_np(
             join_cases.queries_for(index_words, rng))).to(dev)
         for n in (q_all.numel(), 1, 255, 257):
@@ -467,8 +496,24 @@ def phase_join_kernels(rng, dev) -> None:
                                      f"{err}, {launched} launches")
             if n == q_all.numel():
                 uncovered = int((got[2] > 0).sum())
-        log(f"  {name}: equal to the plain version on all {q_all.numel()} "
-            f"queries ({uncovered} uncovered) and at 1, 255, 257 queries")
+        n = q_all.numel()
+        masks = {"all": torch.ones(n, dtype=torch.bool, device=dev),
+                 "none": torch.zeros(n, dtype=torch.bool, device=dev),
+                 "random": torch.as_tensor(rng.random(n) < 0.5).to(dev)}
+        for mask, q_ok in masks.items():
+            before = sum(join_cuda.JOIN_LAUNCHES.values())
+            got = match.join_bounds(q_all, q_ok, keys, **kw)
+            torch.cuda.synchronize()
+            launched = sum(join_cuda.JOIN_LAUNCHES.values()) - before
+            want = match.tier2(*run(q_all)[1], q_all, q_ok, keys)
+            err = max_abs_err(got, want)
+            if err or launched != 1:
+                raise AssertionError(f"{name} join_bounds, q_ok {mask}: max "
+                                     f"abs err {err}, {launched} launches")
+        log(f"  {name}: equal to the plain version on all {n} queries "
+            f"({uncovered} uncovered) and at 1, 255, 257 queries; "
+            f"join_bounds (one launch) equal to the plain lookup + tier 2 "
+            f"for q_ok all, none and a random half")
 
 
 def copied_reads(rng, genome, starts, rc, l: int):
@@ -1426,7 +1471,7 @@ def device_busy_share(trace_path: str):
 def phase_pipeline(ctx, tmp: str, chunk_pairs: int, expect=None):
     """Phase 5's DB and reads in chunks of chunk_pairs pairs, through the
     CLI on cuda at depth 1 (--no-chunk-overlap) and depth 3 (the
-    default) in turns, five runs each: outputs byte-identical across the
+    default) in turns, three runs each: outputs byte-identical across the
     runs, >= 99% of pairs classified, every SW launch fused; then one
     profiled run at each depth for the device's busy share; then the
     copied eval/comparison.py on the runs' _PerRead.  Returns the fused
@@ -1439,7 +1484,7 @@ def phase_pipeline(ctx, tmp: str, chunk_pairs: int, expect=None):
     n_pairs, n_reads = len(g), 2 * len(g)
     chunk = ["--num-reads-at-once", str(chunk_pairs)]
     runs = []
-    for turn, depth in enumerate((1, 3, 3, 1, 1, 3, 3, 1, 1, 3)):
+    for turn, depth in enumerate((1, 3, 3, 1, 1, 3)):
         metrics.reset()
         torch.cuda.reset_peak_memory_stats()
         sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
@@ -1539,52 +1584,283 @@ def phase_pipeline(ctx, tmp: str, chunk_pairs: int, expect=None):
 
 # one H100's HBM rate (the data sheet's, SXM part), bytes/s
 HBM_RATE = 3.35e12
+ESCAPE = 1 << 30            # a bucket row's count flag (ops/join.py)
+ALL_ONES_KEY = 2**63 - 1    # the all-ones word's key (the sentinel)
 
 
-def join_bytes(q, d_keys, d_tbl, bbits: int, d_pstart, bits: int,
+def search_probes(keys, a, b, q):
+    """Tier 2's binary searches (csrc/join.cu: exact_bounds) for the
+    queries q with runs [a, b), vectorised: the lower bound's, then the
+    upper bound's from it (the keys' end for the all-ones word).
+    Returns (lo, hi, every position read)."""
+    n_keys = keys.shape[0]
+    b = torch.clamp(b, max=n_keys)
+    probes = [a.new_zeros(0)]
+
+    def search(a, b, upper: bool):
+        a, b = a.clone(), b.clone()
+        while bool((a < b).any()):
+            live = a < b
+            mid = a + ((b - a) >> 1)
+            x = keys[torch.where(live, mid, 0)]
+            probes.append(mid[live])
+            go = live & ((x <= q) if upper else (x < q))
+            a = torch.where(go, mid + 1, a)
+            b = torch.where(live & ~go, mid, b)
+        return a
+
+    lo = search(a, b, False)
+    hi = torch.where(q == ALL_ONES_KEY, n_keys, search(lo, b, True))
+    return lo, hi, torch.cat(probes)
+
+
+def join_bytes(q, q_ok, d_keys, d_tbl, bbits: int, d_pstart, bits: int,
                window: int):
-    """The least bytes each join kernel moves on these queries, each
-    input read once and each output written once: the 8 B keys, the
-    distinct table rows (64 B) or the distinct pstart entries (4 B) and
-    index keys (8 B) their windows cover, and 20 B of outputs per query.
-    Also the per-query count with no row shared (92 B; 8 + 8 + 16w + 20
-    B).  Returns {kernel: (bytes, per-query bytes)}."""
+    """The least bytes each join call moves on these queries, each input
+    read once and each output written once; the lookups write lo, hi and
+    uncovered (20 B a query), join_bounds lo and hi (16 B):
+    * bucket_join: the 8 B keys and the distinct 64 B table rows;
+      join_bounds adds q_ok of the escaped queries (1 B) and the
+      distinct index keys tier 2's searches read (8 B);
+    * window_join: the 8 B keys, the distinct pstart entries (4 B) and
+      the distinct keys of the covered queries' runs (8 B); join_bounds
+      adds q_ok of the uncovered queries and tier 2's distinct keys;
+    * window_join_rows: the two-row count, the distinct keys of the
+      two-row windows [pos0, pos0 + 2w) the queries cover, and 20 B of
+      outputs.
+    Also the count with nothing shared between queries
+    (per_query_bytes: a row or a run each) and the queries sent to tier
+    2; tier 2's search is modelled by search_probes, whose bounds must
+    be the exact search's.  Returns {call: bytes}, {call: per-query
+    bytes}, {table: kept queries to tier 2}."""
     from kslam_tpu_torch.ops import join
     n_q = q.numel()
-    rows = int(torch.unique(join._bucket_of(q, bbits)).numel())
+    row = join._bucket_of(q, bbits)
+    rows = int(torch.unique(row).numel())
+    start = d_tbl[:, 0][row].to(torch.int64)
+    cntf = d_tbl[:, 1][row]
+    escaped = cntf >= ESCAPE
+    cnt = (cntf & (ESCAPE - 1)).to(torch.int64)
+    t2b = q_ok & escaped & (cnt > 0)
+    sel = q[t2b]
+    lo_b, hi_b, probes_b = search_probes(d_keys, start[t2b],
+                                         start[t2b] + cnt[t2b], sel)
+    exact_b = join.searchsorted_both(d_keys, sel)
+    keys_b = int(torch.unique(probes_b).numel())
+    n_esc = int(escaped.sum())
+    del row, start, cntf, escaped, cnt, sel
+
     p = join._prefix(q, bits)
-    r = d_pstart[p].to(torch.int64) // window
-    seen = torch.zeros(d_keys.shape[0] // window + 1, dtype=torch.bool,
-                       device=q.device)
-    seen[r] = True
-    seen[r + 1] = True
+    start = d_pstart[p].to(torch.int64)
+    end = d_pstart[p + 1].to(torch.int64)
+    pos0 = start // window * window
+    covered = end <= pos0 + 2 * window
     pseen = torch.zeros(d_pstart.shape[0], dtype=torch.bool,
                         device=q.device)
     pseen[p] = True
     pseen[p + 1] = True
-    keys_read = int(seen.sum()) * window
     entries = int(pseen.sum())
-    return {"bucket_join": (n_q * 28 + rows * 64, n_q * 92),
-            "window_join": (n_q * 28 + entries * 4 + keys_read * 8,
-                            n_q * (36 + 16 * window))}
+    up = torch.unique(p[covered])
+    run_keys = int((d_pstart[up + 1] - d_pstart[up]).sum())
+    run_reads = int(torch.where(covered, torch.clamp(end - start, min=0),
+                                0).sum())
+    t2w = q_ok & ~covered
+    sel = q[t2w]
+    lo_w, hi_w, probes_w = search_probes(d_keys, start[t2w], end[t2w], sel)
+    exact_w = join.searchsorted_both(d_keys, sel)
+    keys_w = int(torch.unique(probes_w).numel())
+    n_unc = int((~covered).sum())
+    r = pos0 // window
+    seen = torch.zeros(d_keys.shape[0] // window + 1, dtype=torch.bool,
+                       device=q.device)
+    seen[r] = True
+    seen[r + 1] = True
+    window_keys = int(seen.sum()) * window
+    for got, want in ((lo_b, exact_b[0]), (hi_b, exact_b[1]),
+                      (lo_w, exact_w[0]), (hi_w, exact_w[1])):
+        if not torch.equal(got, want):
+            raise AssertionError("search_probes differs from the exact "
+                                 "search")
+    moved = {
+        "bucket_join": n_q * 28 + rows * 64,
+        "bucket_join_bounds": n_q * 24 + rows * 64 + n_esc + keys_b * 8,
+        "window_join": n_q * 28 + entries * 4 + run_keys * 8,
+        "window_join_bounds": n_q * 24 + entries * 4 + run_keys * 8 +
+        n_unc + keys_w * 8,
+        "window_join_rows": n_q * 28 + entries * 4 + window_keys * 8}
+    per_query = {"bucket_join": n_q * 92,
+                 "window_join": n_q * 36 + run_reads * 8,
+                 "window_join_rows": n_q * (36 + 16 * window)}
+    return moved, per_query, {"bucket": int(t2b.sum()),
+                              "window": int(t2w.sum())}
 
 
-def phase_join(ctx, tmp: str, dev):
+def time_calls(calls: dict, rounds: int = 3):
+    """Every call timed with CUDA events in turns (the order, then
+    reversed, `rounds` times), and its peak device memory over the call
+    above what was allocated before it.  Returns {name: (mean ms, the
+    readings, peak bytes)}."""
+    times = {k: [] for k in calls}
+    peaks = {k: 0 for k in calls}
+    order = list(calls)
+    for name in (order + order[::-1]) * rounds:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = calls[name]()
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end))
+        peaks[name] = max(peaks[name],
+                          torch.cuda.max_memory_allocated() - base)
+        del out
+    return {k: (sum(v) / len(v), v, peaks[k]) for k, v in times.items()}
+
+
+def check_join_calls(calls: dict, q_ok, n_q: int, n_ok: int):
+    """Every lookup kernel equal to its plain version on every query;
+    join_bounds through each table one launch, equal to
+    searchsorted_both on every kept query and to the plain lookup + tier
+    2 (join_bounds' plain version) on every query, and the unfused
+    composition equal to it.  Returns {kernel: {max_abs_err,
+    to_tier2}}."""
+    from kslam_tpu_torch.ops import join_cuda
+    want = calls["searchsorted_both"]()
+    checks = {}
+    for kernel in ("bucket_join", "window_join"):
+        table = kernel.split("_")[0]
+        plain = calls[f"{table}_plain"]()
+        got = calls[kernel]()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        to_tier2 = int((q_ok & (got[2] > 0)).sum())
+        del got
+        before = join_cuda.JOIN_LAUNCHES[kernel]
+        bounds = calls[f"{kernel}_bounds"]()
+        launched = join_cuda.JOIN_LAUNCHES[kernel] - before
+        exact = all(torch.equal(torch.where(q_ok, a, 0),
+                                torch.where(q_ok, b, 0))
+                    for a, b in zip(bounds, want))
+        same = [max_abs_err(bounds, calls[f"{table}_plain_bounds"]()),
+                max_abs_err(bounds, calls[f"{table}_composition"]())]
+        del bounds, plain
+        checks[kernel] = dict(max_abs_err=err, to_tier2=to_tier2)
+        log(f"  {kernel}: (lo, hi, uncovered) equal to the plain "
+            f"version's on all {n_q} queries: {err == 0} (max abs err "
+            f"{err}); join_bounds through it "
+            f"{launched} launch, equal to searchsorted_both on the {n_ok} "
+            f"kept queries: {exact}, to the plain lookup + tier 2 and to "
+            f"the unfused composition on every query: max abs err {same}; "
+            f"{to_tier2} kept queries to tier 2 "
+            f"({to_tier2 / max(n_ok, 1):.6%})")
+        if err or not exact or any(same) or launched != 1:
+            raise AssertionError(f"{kernel}: the kernel differs from its "
+                                 f"plain version or the exact search")
+    return checks
+
+
+def join_calls(d_keys, q, q_ok, tbl, bbits: int, pstart, bits: int,
+               window: int):
+    """The timed calls of phase 10 on (keys, queries): the exact search;
+    per table (the bucket table tbl at bbits, the prefix window pstart
+    at bits and window) its lookup kernel, plain version, join_bounds
+    (one launch), the unfused composition (the kernel, then match.tier2:
+    the torch tier 2 of join_bounds' plain version, with torch.nonzero,
+    searchsorted_both and two index_put copies) and the plain lookup +
+    tier 2."""
+    from kslam_tpu_torch.ops import join, match
+
+    def look():
+        return join.lookup_bucket(tbl, q, bbits)
+
+    def plain():
+        return join.lookup_bucket_plain(tbl, q, bbits)
+
+    def wlook():
+        return join.lookup_prefix_window(d_keys, pstart, q, bits, window)
+
+    def wplain():
+        return join.lookup_prefix_window_plain(d_keys, pstart, q, bits,
+                                               window)
+
+    return {
+        "searchsorted_both": lambda: join.searchsorted_both(d_keys, q),
+        "bucket_join": look, "bucket_plain": plain,
+        "bucket_join_bounds": lambda: match.join_bounds(
+            q, q_ok, d_keys, idx_bucket=tbl, bucket_bits=bbits),
+        "bucket_composition": lambda: match.tier2(*look(), q, q_ok, d_keys),
+        "bucket_plain_bounds": lambda: match.tier2(*plain(), q, q_ok,
+                                                   d_keys),
+        "window_join": wlook, "window_plain": wplain,
+        "window_join_bounds": lambda: match.join_bounds(
+            q, q_ok, d_keys, idx_pstart=pstart, prefix_bits=bits,
+            window=window),
+        "window_composition": lambda: match.tier2(*wlook(), q, q_ok,
+                                                  d_keys),
+        "window_plain_bounds": lambda: match.tier2(*wplain(), q, q_ok,
+                                                   d_keys)}
+
+
+def report_join_times(timed: dict, moved: dict, per_query: dict,
+                      checks: dict):
+    """One line per timed call (mean ms, the readings in turns, peak over
+    the call); the lookups and join_bounds with their bytes bound and
+    share, join_bounds beside the unfused composition.  Returns the
+    JSON-able numbers."""
+    result = {}
+    for name, (ms, turns, peak) in timed.items():
+        result[name] = dict(ms=ms, ms_turns=turns, peak_bytes=peak)
+        line = (f"  {name}: {ms:.4f} ms mean of {len(turns)} in turns "
+                f"{[round(t, 4) for t in turns]}; peak over the call "
+                f"{peak} B")
+        if name.endswith("_join_bounds"):
+            comp = timed[f"{name.split('_')[0]}_composition"][0]
+            result[name]["composition_ms"] = comp
+            line += (f"; the unfused composition {comp:.4f} ms, the lookup "
+                     f"alone {timed[name[:-7]][0]:.4f} ms")
+        if name in moved:
+            bound = moved[name] / HBM_RATE * 1e3
+            result[name].update(checks.get(name, {}), bytes=moved[name],
+                                bound_ms=bound, bound_share=bound / ms)
+            line += (f"; bytes bound {bound:.4f} ms ({moved[name]} B: what "
+                     f"these queries need, each once), {bound / ms:.2%} "
+                     f"of it")
+            if name in per_query:
+                pq = per_query[name] / HBM_RATE * 1e3
+                result[name]["per_query_bound_ms"] = pq
+                line += f"; with nothing shared {pq:.4f} ms"
+            if f"{name}_rows" in moved:
+                old = moved[f"{name}_rows"] / HBM_RATE * 1e3
+                result[name].update(
+                    rows_bound_ms=old, rows_bound_share=old / ms,
+                    rows_per_query_bound_ms=per_query[f"{name}_rows"] /
+                    HBM_RATE * 1e3)
+                line += (f"; the two-row bound {old:.4f} ms, "
+                         f"{old / ms:.2%} of it")
+        log(line)
+    return result
+
+
+def phase_join(ctx, tmp: str, dev, seed: int):
     """The join's kernels on phase 5's DB and the k-mers of all its reads
     at once: bucket_join (lookup_bucket on the card) and window_join
-    (lookup_prefix_window) against their plain versions on every query
-    (lo, hi, uncovered); match.join_bounds through each (tier 2
-    included) against the exact search (searchsorted_both, the library
-    call) on every kept query (q_ok); all seven timed with CUDA events
-    in turns (the order, then reversed, three times): ms, peak device
-    memory over the call, the kernels' bytes bound and share, tier 2's
-    share of kept queries, and the device time by op of one profiled
-    join_bounds call each.  Then one --no-prefix-rows CLI run on the
-    card (window_join on the path), byte-identical to phase 5's.
-    Returns the JSON-able numbers."""
+    (lookup_prefix_window) against their plain versions on
+    every query (lo, hi, uncovered); match.join_bounds through each (one
+    launch, tier 2 inside) against the exact search (searchsorted_both,
+    the library call) on every kept query (q_ok) and against the plain
+    lookup + tier 2 and the unfused composition on every query; every call
+    timed with CUDA events in turns: ms, peak device memory over the
+    call, the bytes bound and share (and the two-row bound), and tier
+    2's share of kept queries.  Then the repeat-rich case
+    (join_repeats) and one --no-prefix-rows CLI run on the card
+    (window_join on the path), byte-identical to phase 5's.  Returns the
+    JSON-able numbers."""
     from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
     from kslam_tpu_torch.io.fastq import stream_read_batches
-    from kslam_tpu_torch.ops import encode, join, kmers, match, sw_cuda
+    from kslam_tpu_torch.ops import encode, kmers, sw_cuda
     from kslam_tpu_torch.utils import metrics
     kidx = KmerIndex.load(ctx["db"])
     keys, _, pstart, bits, window = join_columns(kidx)
@@ -1612,134 +1888,27 @@ def phase_join(ctx, tmp: str, dev):
         f"{batch.num_reads} reads at once: {n_q} query positions, {n_ok} "
         f"kept (valid, not the zero k-mer)")
 
-    bucket = dict(idx_bucket=d_tbl, bucket_bits=bbits)
-    prefix = dict(idx_pstart=d_pstart, prefix_bits=bits, window=window)
-    calls = {
-        "searchsorted_both": lambda: join.searchsorted_both(d_keys, q),
-        "bucket_join": lambda: join.lookup_bucket(d_tbl, q, bbits),
-        "bucket_plain": lambda: join.lookup_bucket_plain(d_tbl, q, bbits),
-        "bucket_join_bounds": lambda: match.join_bounds(q, q_ok, d_keys,
-                                                        **bucket),
-        "window_join": lambda: join.lookup_prefix_window(
-            d_keys, d_pstart, q, bits, window),
-        "window_plain": lambda: join.lookup_prefix_window_plain(
-            d_keys, d_pstart, q, bits, window),
-        "window_join_bounds": lambda: match.join_bounds(q, q_ok, d_keys,
-                                                        **prefix)}
-
-    want = calls["searchsorted_both"]()
-    checks = {}
-    for kernel in ("bucket_join", "window_join"):
-        table = kernel.split("_")[0]
-        got = calls[kernel]()
-        plain = calls[f"{table}_plain"]()
-        torch.cuda.synchronize()
-        err = max_abs_err(got, plain)
-        same = all(torch.equal(a, b) for a, b in zip(got, plain))
-        to_tier2 = int((q_ok & (got[2] > 0)).sum())
-        del got, plain
-        bounds = calls[f"{table}_join_bounds"]()
-        exact = all(torch.equal(torch.where(q_ok, a, 0),
-                                torch.where(q_ok, b, 0))
-                    for a, b in zip(bounds, want))
-        del bounds
-        checks[kernel] = dict(max_abs_err=err, to_tier2=to_tier2)
-        log(f"  {kernel}: (lo, hi, uncovered) equal to the plain "
-            f"version's on all {n_q} queries: {same} (max abs err {err}); "
-            f"join_bounds through it equal to searchsorted_both on the "
-            f"{n_ok} kept queries: {exact}; {to_tier2} kept queries to "
-            f"tier 2 ({to_tier2 / n_ok:.6%})")
-        if not same or not exact:
-            raise AssertionError(f"{kernel}: the kernel differs from its "
-                                 f"plain version or the exact search")
-    del want
-    moved = join_bytes(q, d_keys, d_tbl, bbits, d_pstart, bits, window)
-
-    times = {k: [] for k in calls}
-    peaks = {k: 0 for k in calls}
-    order = list(calls)
-    for name in (order + order[::-1]) * 3:
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = calls[name]()
-        end.record()
-        torch.cuda.synchronize()
-        times[name].append(start.elapsed_time(end))
-        peaks[name] = max(peaks[name],
-                          torch.cuda.max_memory_allocated() - base)
-        del out
-    # device time by op of one profiled call of each join_bounds and of
-    # the exact search: the profiler's schedule records the second of two
-    # calls, once (repeat=1: no later warm-up cycle replaces the record)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    by_op = {}
-    for name in ("bucket_join_bounds", "window_join_bounds",
-                 "searchsorted_both"):
-        with torch.profiler.profile(
-                activities=acts, schedule=torch.profiler.schedule(
-                    wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                out = calls[name]()
-                torch.cuda.synchronize()
-                del out
-                prof.step()
-        ops = []
-        for e in prof.key_averages():
-            # the device's own events (kernels, copies): the operators
-            # and the profiler step that launched them repeat their time
-            if not str(getattr(e, "device_type", "")).endswith("CUDA") \
-                    or e.key.startswith("ProfilerStep"):
-                continue
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = getattr(e, "self_cuda_time_total", 0)
-            if t > 0:
-                ops.append((e.key[:100], e.count, t / 1e3))
-        ops.sort(key=lambda x: -x[2])
-        by_op[name] = ops[:10]
-        if not ops:
-            log(f"  {name} device time by op: not measured (the trace "
-                f"holds no device time)")
-            continue
-        log(f"  {name} device time by op (one profiled call, "
-            f"{sum(x[2] for x in ops):.4f} ms in all): " + "; ".join(
-                f"{k} x{c} {ms:.4f} ms" for k, c, ms in ops[:10]))
-    result = {}
-    for name in order:
-        ms = sum(times[name]) / len(times[name])
-        result[name] = dict(ms=ms, ms_turns=times[name],
-                            peak_bytes=peaks[name])
-        line = (f"  {name}: {ms:.4f} ms mean of {len(times[name])} in turns "
-                f"{[round(t, 4) for t in times[name]]}; peak over the call "
-                f"{peaks[name]} B")
-        if name.endswith("_bounds"):
-            # tier 2 and its put-back: join_bounds less the kernel alone
-            tier2 = ms - result[name[:-len("_bounds")]]["ms"]
-            result[name]["tier2_ms"] = tier2
-            line += f"; tier 2 and put-back {tier2:.4f} ms of it"
-        if name in moved:
-            nbytes, per_query = moved[name]
-            bound = nbytes / HBM_RATE * 1e3
-            result[name].update(
-                checks[name], bytes=nbytes, bound_ms=bound,
-                bound_share=bound / ms,
-                per_query_bound_ms=per_query / HBM_RATE * 1e3)
-            line += (f"; bytes bound {bound:.4f} ms ({nbytes} B: the rows "
-                     f"these queries read, each once), {bound / ms:.2%} of "
-                     f"it; with no row shared "
-                     f"{result[name]['per_query_bound_ms']:.4f} ms")
-        log(line)
+    calls = join_calls(d_keys, q, q_ok, d_tbl, bbits, d_pstart, bits,
+                       window)
+    checks = check_join_calls(calls, q_ok, n_q, n_ok)
+    moved, per_query, tier2 = join_bytes(q, q_ok, d_keys, d_tbl, bbits,
+                                         d_pstart, bits, window)
+    for kernel, table in (("bucket_join", "bucket"),
+                          ("window_join", "window")):
+        if tier2[table] != checks[kernel]["to_tier2"]:
+            raise AssertionError(f"{kernel}: {tier2[table]} tier-2 queries "
+                                 f"in the bound, "
+                                 f"{checks[kernel]['to_tier2']} in the run")
+    timed = time_calls(calls)
+    result = report_join_times(timed, moved, per_query, checks)
     result.update(queries=n_q, kept=n_ok, index_keys=m, bucket_bits=bbits,
-                  prefix_bits=bits, window=window, top_ops_ms=by_op,
+                  prefix_bits=bits, window=window,
                   table_bytes={"bucket": int(d_tbl.nbytes),
                                "prefix_window": int(d_pstart.nbytes)})
-    # the tables and queries go before the CLI run, whose peak is its own
-    del calls, bucket, prefix, d_tbl, d_pstart, d_keys, q, q_ok, lengths
+    # the tables and queries go before the next index and the CLI run,
+    # whose peaks are their own
+    del calls, d_tbl, d_pstart, d_keys, q, q_ok, lengths
+    result["repeat_rich"] = join_repeats(dev, seed)
 
     # --no-prefix-rows on the card: the prefix window and tier 2 on the
     # CLI path, no bucket table
@@ -1774,17 +1943,98 @@ def phase_join(ctx, tmp: str, dev):
     return result
 
 
+def join_repeats(dev, seed: int, n_genomes: int = 96,
+                 bp_each: int = 1_700_000, n_reads: int = 262_144):
+    """The join on a repeat-rich index: eval/realistic genomes (n_genomes
+    x bp_each bp, with shared rRNA operons, IS-element families,
+    low-complexity tracts and a shared plasmid), indexed by the port's
+    KmerIndex.build at the reference's stride (>= 1e7 keys), its bucket
+    table and prefix window built on the host and put on the card with
+    the keys; the queries are the k-mers of n_reads 150 bp reads copied
+    from those genomes on the card.  At least 1% of the kept queries
+    must go to tier 2 with the bucket table.  join_bounds through each
+    table (one launch) must equal searchsorted_both on every kept query
+    and the plain lookup + tier 2 on every query; join_bounds, the
+    unfused composition, the lookups and the exact search are timed in turns.
+    Returns the JSON-able numbers."""
+    from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
+    from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
+    from kslam_tpu_torch.eval import realistic
+    from kslam_tpu_torch.ops import encode, kmers
+    t0 = time.perf_counter()
+    entries = realistic.make_realistic_entries(
+        n_genomes=n_genomes, bp_each=bp_each, seed=seed + 7)
+    seqs = [e.seq for e in entries]
+    kidx = KmerIndex.build(GenbankIndex([
+        GenbankEntry(bases=s.tobytes().decode()) for s in seqs]))
+    keys, _, pstart, bits, window = join_columns(kidx)
+    tbl, bbits = kidx.bucket_table()
+    m = len(kidx)
+    build_s = time.perf_counter() - t0
+    if m < 10**7:
+        raise AssertionError(f"the repeat-rich index holds {m} keys, "
+                             f"under 1e7")
+    d_keys = torch.as_tensor(keys).to(dev)
+    d_tbl = torch.from_numpy(tbl).to(dev)
+    d_pstart = torch.as_tensor(pstart).to(dev)
+    del kidx, keys, tbl
+    rng = np.random.default_rng(seed + 8)
+    lens = np.array([len(s) for s in seqs])
+    first = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    ent = rng.choice(len(seqs), n_reads, p=lens / lens.sum())
+    starts = first[ent] + rng.integers(0, lens[ent] - 150)
+    genome = torch.as_tensor(np.concatenate(seqs)).to(dev)
+    idx = torch.as_tensor(starts).to(dev)[:, None] + \
+        torch.arange(150, device=dev)[None, :]
+    lengths = torch.full((n_reads,), 150, dtype=torch.int64, device=dev)
+    km, _, _, valid = kmers.read_kmers_from_codes(
+        encode.kmer_codes(genome[idx]), lengths)
+    del genome, idx, seqs, entries
+    q = km.reshape(-1)
+    q_ok = valid.reshape(-1) & (q != kmers.FLIP)
+    n_q, n_ok = q.shape[0], int(q_ok.sum())
+    del km, valid, lengths
+    log(f"  repeat-rich index: {n_genomes} realistic genomes x {bp_each} "
+        f"bp + plasmids, {m} keys (padded {d_keys.shape[0]}), prefix "
+        f"table {bits} bits, window {window}; bucket table {bbits} bits; "
+        f"built in {build_s:.1f} s; {n_reads} reads copied from the "
+        f"genomes: {n_q} query positions, {n_ok} kept")
+    calls = join_calls(d_keys, q, q_ok, d_tbl, bbits, d_pstart, bits,
+                       window)
+    checks = check_join_calls(calls, q_ok, n_q, n_ok)
+    share = checks["bucket_join"]["to_tier2"] / n_ok
+    if share < 0.01:
+        raise AssertionError(f"repeat-rich: {share:.4%} of kept queries to "
+                             f"tier 2 with the bucket table, under 1%")
+    moved, per_query, _ = join_bytes(q, q_ok, d_keys, d_tbl, bbits,
+                                     d_pstart, bits, window)
+    timed = time_calls(calls)
+    result = report_join_times(timed, moved, per_query, checks)
+    result.update(queries=n_q, kept=n_ok, index_keys=m, bucket_bits=bbits,
+                  prefix_bits=bits, window=window, build_s=build_s,
+                  n_genomes=n_genomes, bp_each=bp_each, reads=n_reads,
+                  tier2_share={k: c["to_tier2"] / n_ok
+                               for k, c in checks.items()})
+    return result
+
+
 def join_kernel_entries(joins: dict):
-    """The kernels line's entries of the join kernels: launches on each
-    one's own path (bucket_join on the main path, window_join with
-    --no-prefix-rows) and on every path (JOIN_PATHS), times, bound and
-    the exact search's time (library_ms) from phase 10's `joins`."""
+    """The kernels line's entries of the join kernels from phase 10's
+    `joins`: launches on each one's own path (bucket_join on the main
+    path, window_join with --no-prefix-rows; a join_bounds call is one
+    launch) and on every path (JOIN_PATHS); the lookup's time, plain
+    version's, bytes bound (window_join also the two-row bound);
+    join_bounds' time (tier 2 in the launch) beside the unfused
+    composition, the plain lookup + tier 2 and their peaks; the
+    repeat-rich case's; and the exact search's time (library_ms)."""
     entries = []
+    rich = joins["repeat_rich"]
     for kernel, main_path, line in (
             ("bucket_join", "device_pipeline", 146),
             ("window_join", "no_prefix_rows", 244)):
-        j = joins[kernel]
-        entries.append({
+        table = kernel.split("_")[0]
+        j, b = joins[kernel], joins[f"{kernel}_bounds"]
+        entry = {
             "name": kernel, "route": "cuda",
             "source": "kslam_tpu_torch/csrc/join.cu",
             "replaces": f"kslam_tpu/ops/join.py:{line}",
@@ -1792,13 +2042,30 @@ def join_kernel_entries(joins: dict):
             "launches_by_path": {p: c[kernel] for p, c in JOIN_PATHS.items()
                                  if kernel in c},
             "max_abs_err": j["max_abs_err"], "ms": j["ms"],
-            "plain_ms": joins[kernel.replace("join", "plain")]["ms"],
+            "plain_ms": joins[f"{table}_plain"]["ms"],
             "bound_ms": j["bound_ms"], "bound_by": "bytes",
             "bound_share": j["bound_share"],
             "per_query_bound_ms": j["per_query_bound_ms"],
-            "join_bounds_ms": joins[f"{kernel}_bounds"]["ms"],
+            "join_bounds_ms": b["ms"], "join_bounds_bound_ms": b["bound_ms"],
+            "join_bounds_bound_share": b["bound_share"],
+            "composition_ms": b["composition_ms"],
+            "join_bounds_plain_ms": joins[f"{table}_plain_bounds"]["ms"],
+            "join_bounds_peak_bytes": b["peak_bytes"],
+            "composition_peak_bytes":
+                joins[f"{table}_composition"]["peak_bytes"],
+            "to_tier2": j["to_tier2"],
+            "repeat_rich": {
+                "ms": rich[kernel]["ms"],
+                "join_bounds_ms": rich[f"{kernel}_bounds"]["ms"],
+                "composition_ms": rich[f"{kernel}_bounds"]["composition_ms"],
+                "join_bounds_bound_ms": rich[f"{kernel}_bounds"]["bound_ms"],
+                "tier2_share": rich["tier2_share"][kernel]},
             "queries": joins["queries"],
-            "library_ms": joins["searchsorted_both"]["ms"]})
+            "library_ms": joins["searchsorted_both"]["ms"]}
+        if kernel == "window_join":
+            entry.update(rows_bound_ms=j["rows_bound_ms"],
+                         rows_bound_share=j["rows_bound_share"])
+        entries.append(entry)
     return entries
 
 
@@ -1889,7 +2156,7 @@ def main() -> int:
         pipe_fused = phase_pipeline(ctx, tmp, chunk_pairs, expect)
         log(f"phase 10 join backends: phase 5's DB and its "
             f"{2 * args.pairs} reads' k-mers at once")
-        joins = phase_join(ctx, tmp, dev)
+        joins = phase_join(ctx, tmp, dev, args.seed)
         log(f"  join: {json.dumps({'join': joins})}")
 
     flat, chunked = align["flat"], align["chunked"]

@@ -1,6 +1,11 @@
 // The k-mer join's two table lookups for Hopper: bucket_join and
-// window_join.  Each returns, for every query key, (lo int64, hi int64,
-// uncovered int32) exactly as the plain versions in ops/join.py do.
+// window_join.  Each has two modes.  As a lookup it returns, for every
+// query key, (lo int64, hi int64, uncovered int32) exactly as the plain
+// versions in ops/join.py do.  With tier 2 (ops/match.join_bounds on the
+// card) it also takes q_ok and returns only (lo, hi): every kept query
+// its table leaves uncovered gets the exact insertion points of the
+// sorted index keys, found in the same launch, as join_bounds' plain
+// version (lookup, torch.nonzero, searchsorted_both, index_put) gives.
 //
 // What they compute.  The reference package's join is XLA ops, not a
 // Pallas kernel: on the TPU XLA fuses each lookup into a few passes.
@@ -17,43 +22,61 @@
 //   uncovered = covered ? 0 : count.
 // * window_join: kslam_tpu/ops/join.py:244-288 (lookup_prefix_window).
 //   p = the top prefix_bits of the word, start = pstart[p],
-//   end = pstart[p + 1], pos0 = (start / w) * w; lt and eq count the
-//   sorted index keys below and equal to the query over all 2w slots
-//   [pos0, pos0 + 2w) (slots before start hold smaller prefixes, slots
-//   from end on larger ones or the all-ones sentinels).  covered =
-//   end <= pos0 + 2w; lo = covered ? pos0 + lt : start, hi = covered ?
-//   lo + eq : start, uncovered = covered ? 0 : end - start.
+//   end = pstart[p + 1], pos0 = (start / w) * w; the reference counts
+//   the index keys below and equal to the query over all 2w slots
+//   [pos0, pos0 + 2w).  covered = end <= pos0 + 2w; lo = covered ?
+//   pos0 + lt : start, hi = covered ? lo + eq : start, uncovered =
+//   covered ? 0 : end - start.
 // Keys are int64 with the top bit flipped (ops/kmers.py); every compare
 // here is on the unsigned word, key ^ 2^63.
 //
-// What bounds both on the H100: bytes.  bucket_join moves per query its
-// 8 B key, one 64 B row (two 32 B sectors) and 20 B of outputs;
-// window_join its key, two 4 B pstart entries, 2w keys (16w B) and the
-// outputs.  There is no arithmetic to speak of.  The torch versions
-// gather the row into a [Q, 16] temporary and then run ~30 passes over
-// [Q, 8] int64 temporaries; these kernels read each row once into
-// registers and write only the outputs:
-// * bucket_join: one thread per query (grid-stride loop).  The row is
-//   four independent 16 B read-only loads (ld.global.nc.v4), so a thread
-//   has its whole row in flight at once; the table is 64 B aligned (the
-//   wrapper checks), so a row is two sectors.  The CDF map is one
-//   __umulhi.  The eight slot compares are unrolled in registers.
-// * window_join: a group of G = min(w, 32) lanes per query.  Lane l
-//   reads keys pos0 + 2(l + G k) and the next one as one 16 B load, for
-//   k < w / G steps, so a group reads its 2w keys in coalesced 16 B
-//   lanes (w = 16: two queries per warp, 256 B per half-warp).  Each
-//   lane packs its counts as lt | eq << 16 (2w <= 2^13) and the group
-//   sums them with a shuffle butterfly; its first lane writes.  Queries
-//   are dealt to warps in tiles of 32 / G, so every lane of a warp runs
-//   the same loop and the shuffles use the full mask.
+// The run is enough.  Both tables address a contiguous run of the
+// sorted keys: a bucket row's [c0, c0 + count) (the CDF map is monotone
+// in the word) and a prefix's [start, end).  Every key before the run
+// is below the query and every key from the run's end on is above it,
+// save one edge: the index is padded with int64-max sentinels (the
+// all-ones word) after its M real keys, and the tables count real keys
+// only (pstart[2^bits] = M; the last bucket ends at M), so for the
+// all-ones query the sentinels after the run are equal, not above.  No
+// canonical k-mer is all ones (it is the zero k-mer's reverse
+// complement), but the lookups must still agree with the references:
+// * window_join's slots [pos0, start) add start - pos0 to lt, and the
+//   slots [end, pos0 + 2w) add nothing, so lo = start + #(run < q) and
+//   hi = lo + #(run == q); for the all-ones query every slot is <= q, so
+//   hi = pos0 + 2w (the slots inside the keys: min(pos0 + 2w, n_keys)).
+// * tier 2: lo = the lower bound of q in the run, hi = its upper bound;
+//   for the all-ones query every key is <= q, so hi = n_keys, as
+//   torch.searchsorted(right=True) over the padded keys gives.
+//
+// What bounds both on the H100: bytes, and the latency of dependent
+// random loads.  There is no arithmetic to speak of.
+// * bucket_join: one thread per query (grid-stride loop).  Per query
+//   its 8 B key, one 64 B row (two 32 B sectors) and the outputs.  The
+//   row is four independent 16 B read-only loads (ld.global.nc.v4), so
+//   a thread has its whole row in flight at once; the table is 64 B
+//   aligned (the wrapper checks), so a row is two sectors.  The CDF map
+//   is one __umulhi.  The eight slot compares are unrolled in registers.
+// * window_join: one thread per query (grid-stride loop), 32
+//   registers, so 2048 queries are in flight per SM.  Three dependent
+//   steps: the key (coalesced), pstart[p] and pstart[p + 1] (one sector,
+//   usually), then the run's keys as independent 8 B loads.  A run holds
+//   about 1.5 keys at 26 prefix bits over 1e8 keys; the two rows around
+//   it are not read.  Giving a thread 2 or 4 queries, their loads issued
+//   together, was measured no faster: two dependent random sectors a
+//   query are the limit, not the loads in flight.
+// * tier 2 (both): a binary search of the escaped run, whose bounds the
+//   thread already holds (lower bound, then the upper bound from it);
+//   q_ok is read only for uncovered queries.  No compaction, no
+//   synchronisation: the launch writes lo and hi of every query.
 // Random 64 B rows over a table of up to 4 GiB cost TLB and DRAM page
 // misses that the bytes bound does not count.
 //
 // Limits (checked by the wrapper, ops/join_cuda.py): bits in 1..32;
-// prefix_bits in 1..31; w a power of two in 2..4096 with the keys'
-// length a multiple of w and >= 2w; the table 64 B aligned and the keys
-// 16 B aligned.  A slot past the keys' end counts as neither below nor
-// equal (the index carries >= 2w sentinels, so no valid input has one).
+// prefix_bits in 1..31; w a power of two in 2..4096 (a covered run is at
+// most 2w keys, scanned in full) with the keys' length a multiple of w
+// and >= 2w; the table 64 B aligned.  A run is read only inside the
+// keys [0, n_keys): a table that points past them (no valid input does)
+// counts nothing there.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,6 +86,7 @@
 namespace {
 
 constexpr unsigned long long kFlip = 0x8000000000000000ull;
+constexpr unsigned long long kAllOnes = ~0ull;
 constexpr int kEscape = 1 << 30;
 constexpr int kSlots = 8;          // KmerIndex.BUCKET_SLOTS
 constexpr int kDeltaBits = 12;     // KmerIndex.BUCKET_DELTA_BITS
@@ -73,9 +97,41 @@ __device__ __forceinline__ unsigned long long word_of(long long key) {
   return static_cast<unsigned long long>(key) ^ kFlip;
 }
 
+// The first position in [a, b) whose word is not below (kUpper: is
+// above) `word`; b if none.
+template <bool kUpper>
+__device__ __forceinline__ long long search(const long long* keys,
+                                            long long a, long long b,
+                                            unsigned long long word) {
+  while (a < b) {
+    const long long mid = a + ((b - a) >> 1);
+    const unsigned long long x = word_of(__ldg(keys + mid));
+    if (kUpper ? x <= word : x < word)
+      a = mid + 1;
+    else
+      b = mid;
+  }
+  return a;
+}
+
+// Tier 2: the exact (lo, hi) of `word` in the sorted keys, given the run
+// [a, b) that holds every key equal to it (module comment).
+__device__ __forceinline__ void exact_bounds(const long long* keys,
+                                             long long n_keys, long long a,
+                                             long long b,
+                                             unsigned long long word,
+                                             long long& lo, long long& hi) {
+  b = min(b, n_keys);
+  lo = search<false>(keys, a, b, word);
+  hi = word == kAllOnes ? n_keys : search<true>(keys, lo, b, word);
+}
+
+template <bool kTier2>
 __global__ void __launch_bounds__(kMaxThreads)
     bucket_join_kernel(const long long* __restrict__ queries,
                        const int4* __restrict__ tbl, long long n, int bits,
+                       const long long* __restrict__ keys, long long n_keys,
+                       const unsigned char* __restrict__ q_ok,
                        long long* __restrict__ lo_out,
                        long long* __restrict__ hi_out,
                        int* __restrict__ unc_out) {
@@ -113,62 +169,61 @@ __global__ void __launch_bounds__(kMaxThreads)
       eq += in_run && slot == word;
     }
     const bool covered = a.y < kEscape;
-    const long long lo = static_cast<long long>(a.x) + (covered ? lt : 0);
+    long long lo = static_cast<long long>(a.x) + (covered ? lt : 0);
+    long long hi = lo + (covered ? eq : 0);
+    if (kTier2) {
+      if (!covered && cnt > 0 && q_ok[i])
+        exact_bounds(keys, n_keys, a.x, static_cast<long long>(a.x) + cnt,
+                     word, lo, hi);
+    } else {
+      unc_out[i] = covered ? 0 : cnt;
+    }
     lo_out[i] = lo;
-    hi_out[i] = lo + (covered ? eq : 0);
-    unc_out[i] = covered ? 0 : cnt;
+    hi_out[i] = hi;
   }
 }
 
+template <bool kTier2>
 __global__ void __launch_bounds__(kMaxThreads)
-    window_join_kernel(const longlong2* __restrict__ keys2, long long n_keys,
+    window_join_kernel(const long long* __restrict__ keys, long long n_keys,
                        const int* __restrict__ pstart,
                        const long long* __restrict__ queries, long long n,
-                       int prefix_bits, int window, int group,
+                       int prefix_bits, int window,
+                       const unsigned char* __restrict__ q_ok,
                        long long* __restrict__ lo_out,
                        long long* __restrict__ hi_out,
                        int* __restrict__ unc_out) {
-  const int lane = threadIdx.x & 31;
-  const int member = lane & (group - 1);
-  const int per_warp = 32 / group;
-  const int steps = window / group;
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const long long warps =
-      (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-  // warp-uniform loop: tile `base` holds queries base .. base + 32/G - 1
-  for (long long base = warp * per_warp; base < n;
-       base += warps * per_warp) {
-    const long long qi = base + lane / group;
-    const bool live = qi < n;
-    unsigned int packed = 0;           // lt | eq << 16 of this lane
-    long long start = 0, end = 0, pos0 = 0;
-    if (live) {
-      const unsigned long long word = word_of(__ldg(queries + qi));
-      const unsigned int p =
-          static_cast<unsigned int>(word >> (64 - prefix_bits));
-      start = __ldg(pstart + p);
-      end = __ldg(pstart + p + 1);
-      pos0 = start / window * window;
-      for (int k = 0; k < steps; ++k) {
-        const long long pair = pos0 / 2 + member +
-                               static_cast<long long>(group) * k;
-        if (2 * pair >= n_keys) break;
-        const longlong2 kk = __ldg(keys2 + pair);
-        const unsigned long long x = word_of(kk.x), y = word_of(kk.y);
-        packed += (x < word) + (y < word) +
-                  (((x == word) + (y == word)) << 16);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const unsigned long long word = word_of(__ldg(queries + i));
+    const unsigned int p =
+        static_cast<unsigned int>(word >> (64 - prefix_bits));
+    const long long start = __ldg(pstart + p), end = __ldg(pstart + p + 1);
+    const long long pos0 = start / window * window;
+    const bool covered = end <= pos0 + 2ll * window;
+    long long lo = start, hi = start;
+    if (covered) {
+      // the run's slots only: independent 8 B loads
+      int lt = 0, eq = 0;
+      const long long stop = min(end, n_keys);
+      for (long long k = start; k < stop; ++k) {
+        const unsigned long long x = word_of(__ldg(keys + k));
+        lt += x < word;
+        eq += x == word;
       }
+      lo = start + lt;
+      hi = word == kAllOnes ? min(pos0 + 2ll * window, n_keys) : lo + eq;
     }
-    for (int off = group >> 1; off > 0; off >>= 1)
-      packed += __shfl_xor_sync(0xffffffffu, packed, off);
-    if (live && member == 0) {
-      const bool covered = end <= pos0 + 2ll * window;
-      const long long lo = covered ? pos0 + (packed & 0xFFFFu) : start;
-      lo_out[qi] = lo;
-      hi_out[qi] = covered ? lo + (packed >> 16) : start;
-      unc_out[qi] = covered ? 0 : static_cast<int>(end - start);
+    if (kTier2) {
+      if (!covered && q_ok[i])
+        exact_bounds(keys, n_keys, start, end, word, lo, hi);
+    } else {
+      unc_out[i] = covered ? 0 : static_cast<int>(end - start);
     }
+    lo_out[i] = lo;
+    hi_out[i] = hi;
   }
 }
 
@@ -180,57 +235,65 @@ bool launch_ok(int threads, int blocks) {
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  queries: int64 keys [n];
-// lo, hi: int64 [n]; uncovered: int32 [n]; all contiguous on `device`.
-// Each launches on `stream` of `device` without synchronising, leaves
-// the caller's current device as it was, and returns
-// cudaGetLastError() of the launch (0 on success; n <= 0 launches
-// nothing).  The grid (threads, blocks) comes from
-// ops/join_cuda.py:launch_config.
+// lo, hi: int64 [n]; uncovered: int32 [n]; q_ok: bool [n]; keys: the
+// sorted, sentinel-padded int64 index keys [n_keys]; all contiguous on
+// `device`.  q_ok null: the lookup, which writes lo, hi and uncovered
+// (keys may be null for bucket_join); q_ok set: tier 2, which also needs
+// the keys and writes only lo and hi (uncovered may be null).  Each
+// launches on `stream` of `device` without synchronising, leaves the
+// caller's current device as it was, and returns cudaGetLastError() of
+// the launch (0 on success; n <= 0 launches nothing).  The grid
+// (threads, blocks) comes from ops/join_cuda.py:launch_config.
 
 // tbl: int32 [2^bits, 16], 64 B aligned.
 extern "C" int kslam_bucket_join(const void* queries, const void* tbl,
-                                 void* lo, void* hi, void* uncovered,
-                                 long long n, int bits, int threads,
+                                 const void* keys, long long n_keys,
+                                 const void* q_ok, void* lo, void* hi,
+                                 void* uncovered, long long n, int bits,
+                                 int threads, int blocks, int device,
+                                 void* stream) {
+  const kslam::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  if (n <= 0) return 0;
+  const bool tier2 = q_ok != nullptr;
+  if (bits < 1 || bits > 32 || !launch_ok(threads, blocks) ||
+      (tier2 ? keys == nullptr || n_keys < 1 : uncovered == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(tbl) % 64 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  auto* kernel =
+      tier2 ? &bucket_join_kernel<true> : &bucket_join_kernel<false>;
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(queries), static_cast<const int4*>(tbl),
+      n, bits, static_cast<const long long*>(keys), n_keys,
+      static_cast<const unsigned char*>(q_ok), static_cast<long long*>(lo),
+      static_cast<long long*>(hi), static_cast<int*>(uncovered));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pstart: int32 [2^prefix_bits + 1]; window: w.
+extern "C" int kslam_window_join(const void* keys, long long n_keys,
+                                 const void* pstart, const void* queries,
+                                 const void* q_ok, void* lo, void* hi,
+                                 void* uncovered, long long n,
+                                 int prefix_bits, int window, int threads,
                                  int blocks, int device, void* stream) {
   const kslam::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   if (n <= 0) return 0;
-  if (bits < 1 || bits > 32 || !launch_ok(threads, blocks))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(tbl) % 64 != 0)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  bucket_join_kernel<<<blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(queries), static_cast<const int4*>(tbl),
-      n, bits, static_cast<long long*>(lo), static_cast<long long*>(hi),
-      static_cast<int*>(uncovered));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// keys: the sorted, sentinel-padded int64 index keys [n_keys], 16 B
-// aligned; pstart: int32 [2^prefix_bits + 1]; window: w; group: G =
-// min(w, 32).
-extern "C" int kslam_window_join(const void* keys, long long n_keys,
-                                 const void* pstart, const void* queries,
-                                 void* lo, void* hi, void* uncovered,
-                                 long long n, int prefix_bits, int window,
-                                 int group, int threads, int blocks,
-                                 int device, void* stream) {
-  const kslam::DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  if (n <= 0) return 0;
+  const bool tier2 = q_ok != nullptr;
   if (prefix_bits < 1 || prefix_bits > 31 || window < 2 ||
       window > kMaxWindow || (window & (window - 1)) != 0 ||
-      group != (window < 32 ? window : 32) || n_keys % window != 0 ||
-      n_keys < 2ll * window || !launch_ok(threads, blocks))
+      n_keys % window != 0 || n_keys < 2ll * window ||
+      !launch_ok(threads, blocks) || (!tier2 && uncovered == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(keys) % 16 != 0)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  window_join_kernel<<<blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const longlong2*>(keys), n_keys,
+  auto* kernel =
+      tier2 ? &window_join_kernel<true> : &window_join_kernel<false>;
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(keys), n_keys,
       static_cast<const int*>(pstart), static_cast<const long long*>(queries),
-      n, prefix_bits, window, group, static_cast<long long*>(lo),
-      static_cast<long long*>(hi), static_cast<int*>(uncovered));
+      n, prefix_bits, window, static_cast<const unsigned char*>(q_ok),
+      static_cast<long long*>(lo), static_cast<long long*>(hi),
+      static_cast<int*>(uncovered));
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,10 +71,53 @@ def prefix_index_words(rng, bits: int, window: int, m: int = 3000):
     km = (rng.integers(0, 1 << bits, m, dtype=np.uint64)
           << np.uint64(64 - bits)) | rng.integers(0, 4, m, dtype=np.uint64)
     km = np.sort(np.concatenate([km, np.full(3 * window, km[7])]))
+    return (km, *_prefix_addressed(km, bits, window))
+
+
+def sentinel_padded(km, window: int):
+    """km padded with >= 2 * window all-ones sentinels to a multiple of
+    window, as db/kmer_index.join_columns pads."""
+    npad = 2 * window + (-(len(km) + 2 * window)) % window
+    return np.concatenate([km, np.full(npad, ALL_ONES)])
+
+
+def _prefix_addressed(km, bits: int, window: int):
+    """(padded words, pstart int32 [2^bits + 1]: the insertion point of
+    each prefix) of the sorted words km."""
     counts = np.bincount((km >> np.uint64(64 - bits)).astype(np.int64),
                          minlength=1 << bits)
     pstart = np.zeros((1 << bits) + 1, np.int32)
     np.cumsum(counts, out=pstart[1:])
-    npad = 2 * window + (-(len(km) + 2 * window)) % window
-    padded = np.concatenate([km, np.full(npad, ALL_ONES)])
-    return km, padded, pstart
+    return sentinel_padded(km, window), pstart
+
+
+def run_edge_words(rng, bits: int, window: int, m: int = 2000):
+    """(sorted words, padded words, pstart) at (bits, window) with the
+    runs a run-reading join treats apart: m words over m / 4 prefixes
+    (runs of a few keys); one prefix holding a run of 3 * window + 1
+    words, some repeated (uncovered: tier 2 searches it); the last
+    prefix, the all-ones word's, holding five words and two real
+    all-ones words before the sentinels; and the zero word.  Padded and
+    addressed as prefix_index_words."""
+    shift = np.uint64(64 - bits)
+    tops = rng.integers(0, 1 << bits, max(m // 4, 1), dtype=np.uint64)
+    km = (rng.choice(tops, m) << shift) | \
+        rng.integers(0, 1 << 20, m, dtype=np.uint64)
+    long_run = (tops[0] << shift) | \
+        rng.integers(0, 2 * window, 3 * window + 1, dtype=np.uint64)
+    last = np.uint64((1 << bits) - 1) << shift
+    tail = np.concatenate([last | rng.integers(0, 8, 5, dtype=np.uint64),
+                           [ALL_ONES, ALL_ONES]])
+    km = np.sort(np.concatenate([km, long_run, tail,
+                                 np.zeros(1, np.uint64)]))
+    return (km, *_prefix_addressed(km, bits, window))
+
+
+def prefix_shard(km, pstart, lo: int, hi: int, window: int):
+    """(padded shard words, shard pstart) of the sorted words' slice
+    [lo, hi) as parallel/dist.shard_database lays out a mesh shard: the
+    slice padded with sentinels, and pstart clipped to it, so every
+    prefix outside the slice collapses to an empty run at one of its
+    ends."""
+    clipped = np.clip(pstart.astype(np.int64) - lo, 0, hi - lo)
+    return sentinel_padded(km[lo:hi], window), clipped.astype(np.int32)

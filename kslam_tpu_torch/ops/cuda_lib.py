@@ -29,8 +29,9 @@ _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRY_POINTS = {
     "kslam_sw_forward": [_VP] * 4 + [_CI] * 14 + [_VP],
     "kslam_sw_align": [_VP] * 4 + [_CI] * 14 + [_VP],
-    "kslam_bucket_join": [_VP] * 5 + [_CLL] + [_CI] * 4 + [_VP],
-    "kslam_window_join": [_VP, _CLL] + [_VP] * 5 + [_CLL] + [_CI] * 6
+    "kslam_bucket_join": [_VP] * 3 + [_CLL] + [_VP] * 4 + [_CLL]
+    + [_CI] * 4 + [_VP],
+    "kslam_window_join": [_VP, _CLL] + [_VP] * 6 + [_CLL] + [_CI] * 5
     + [_VP],
 }
 

@@ -6,12 +6,20 @@ operands here, send a CPU tensor to the plain version and a CUDA tensor
 to these launches, which check them and raise for any other device; a
 CUDA tensor never falls back.
 
+Each kernel has two modes.  bucket_join / window_join are the lookups:
+(lo, hi, uncovered).  bucket_join_bounds / window_join_bounds are
+ops/match.join_bounds on the card: the same launch also resolves every
+kept (q_ok) query its table leaves uncovered with an exact search of the
+run the table gives, so it returns only (lo, hi), exact wherever q_ok,
+equal to join_bounds' plain version (lookup, nonzero, searchsorted_both,
+index_put) on every query, without a host synchronisation.
+
 Each launch goes on the current stream of the queries' device without a
 synchronisation, into outputs made with torch.empty (lo, hi int64 and
 uncovered int32, shaped like the queries); the C entry point restores
 the caller's current device, and a non-zero cudaError raises.
-JOIN_LAUNCHES counts the launches of each kernel; zero queries launch
-nothing.
+JOIN_LAUNCHES counts the launches of each kernel, in either mode; zero
+queries launch nothing.
 """
 
 from __future__ import annotations
@@ -27,17 +35,13 @@ DELTA_BITS = 12       # bits of a slot's t-delta (KmerIndex.BUCKET_DELTA_BITS)
 THREADS = 256         # threads per block (kMaxThreads in join.cu)
 MAX_BLOCKS = 1 << 20  # the grid-stride loops cover more queries
 TABLE_ALIGN = 64      # a bucket row is two 32 B sectors
-KEYS_ALIGN = 16       # the window's keys are read as 16 B pairs
-MAX_WINDOW = 4096     # lt | eq << 16 holds counts of 2w <= 2^13 slots
+MAX_WINDOW = 4096     # a covered run (<= 2w keys) is scanned in full
 
 
-def launch_config(n: int, window: int = 0):
-    """(group, threads, blocks) of a launch over n queries: window 0 is
-    bucket_join (one thread per query), else window_join with a group of
-    min(window, 32) lanes per query and 32 / group queries per warp."""
-    group = min(window, 32) if window else 1
-    per_block = THREADS // group
-    return group, THREADS, max(min(-(-n // per_block), MAX_BLOCKS), 1)
+def launch_config(n: int):
+    """(threads, blocks) of either kernel's launch over n queries: one
+    thread per query, the grid capped at MAX_BLOCKS (grid-stride)."""
+    return THREADS, max(min(-(-n // THREADS), MAX_BLOCKS), 1)
 
 
 def _check(name, t, dtype, shape=None, dims=None):
@@ -77,12 +81,11 @@ def check_bucket(tbl, queries, bits: int, aligned: bool = False) -> None:
 
 
 def check_window(index_kmers, pstart, queries, prefix_bits: int,
-                 window: int, aligned: bool = False) -> None:
+                 window: int) -> None:
     """Raises ValueError unless index_kmers is 1-d contiguous int64 whose
     length is a multiple of window and >= 2 * window, pstart contiguous
     int32 [2^prefix_bits + 1], queries contiguous int64, all on one
-    device, and window a power of two in 2..MAX_WINDOW;
-    aligned: the keys are also 16 B aligned, as the kernel reads them."""
+    device, and window a power of two in 2..MAX_WINDOW."""
     if window < 2 or window > MAX_WINDOW or window & (window - 1):
         raise ValueError(f"window {window} is not a power of two in "
                          f"2..{MAX_WINDOW}")
@@ -96,15 +99,26 @@ def check_window(index_kmers, pstart, queries, prefix_bits: int,
     _check("pstart", pstart, torch.int32, shape=((1 << prefix_bits) + 1,))
     _check("queries", queries, torch.int64)
     _check_device(queries, index_kmers, pstart)
-    if aligned:
-        _check_aligned("index_kmers", index_kmers, KEYS_ALIGN)
 
 
-def _outputs(queries):
+def check_tier2(index_kmers, q_ok, queries) -> None:
+    """Raises ValueError unless index_kmers is 1-d contiguous int64 with
+    at least one key and q_ok a contiguous bool mask shaped like the
+    queries, both on the queries' device."""
+    _check("index_kmers", index_kmers, torch.int64, dims=1)
+    if index_kmers.shape[0] < 1:
+        raise ValueError("join operand index_kmers: no keys")
+    _check("q_ok", q_ok, torch.bool, shape=tuple(queries.shape))
+    _check_device(queries, index_kmers, q_ok)
+
+
+def _outputs(queries, uncovered: bool = True):
     dev = queries.device
-    return (torch.empty(queries.shape, dtype=torch.int64, device=dev),
-            torch.empty(queries.shape, dtype=torch.int64, device=dev),
-            torch.empty(queries.shape, dtype=torch.int32, device=dev))
+    lo = torch.empty(queries.shape, dtype=torch.int64, device=dev)
+    hi = torch.empty(queries.shape, dtype=torch.int64, device=dev)
+    if not uncovered:
+        return lo, hi
+    return lo, hi, torch.empty(queries.shape, dtype=torch.int32, device=dev)
 
 
 def _device_and_stream(queries):
@@ -122,40 +136,76 @@ def _raise_on(err: int, name: str, n: int) -> None:
                            f"({n} queries)")
 
 
+def _bucket_launch(tbl, queries, bits: int, index_kmers=None, q_ok=None):
+    index, stream = _device_and_stream(queries)
+    check_bucket(tbl, queries, bits, aligned=True)
+    if q_ok is not None:
+        check_tier2(index_kmers, q_ok, queries)
+    out = _outputs(queries, uncovered=q_ok is None)
+    n = queries.numel()
+    if n == 0:
+        return out
+    threads, blocks = launch_config(n)
+    err = load_library().kslam_bucket_join(
+        queries.data_ptr(), tbl.data_ptr(),
+        None if q_ok is None else index_kmers.data_ptr(),
+        0 if q_ok is None else index_kmers.shape[0],
+        None if q_ok is None else q_ok.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(),
+        None if q_ok is not None else out[2].data_ptr(),
+        n, bits, threads, blocks, index, stream)
+    _raise_on(err, "bucket_join", n)
+    JOIN_LAUNCHES["bucket_join"] += 1
+    return out
+
+
+def _window_launch(index_kmers, pstart, queries, prefix_bits: int,
+                   window: int, q_ok=None):
+    index, stream = _device_and_stream(queries)
+    check_window(index_kmers, pstart, queries, prefix_bits, window)
+    if q_ok is not None:
+        check_tier2(index_kmers, q_ok, queries)
+    out = _outputs(queries, uncovered=q_ok is None)
+    n = queries.numel()
+    if n == 0:
+        return out
+    threads, blocks = launch_config(n)
+    err = load_library().kslam_window_join(
+        index_kmers.data_ptr(), index_kmers.shape[0], pstart.data_ptr(),
+        queries.data_ptr(), None if q_ok is None else q_ok.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(),
+        None if q_ok is not None else out[2].data_ptr(),
+        n, prefix_bits, window, threads, blocks, index, stream)
+    _raise_on(err, "window_join", n)
+    JOIN_LAUNCHES["window_join"] += 1
+    return out
+
+
 def bucket_join(tbl, queries, bits: int):
     """(lo, hi, uncovered) of lookup_bucket from one launch of the
     bucket_join kernel; CUDA tensors only."""
-    index, stream = _device_and_stream(queries)
-    check_bucket(tbl, queries, bits, aligned=True)
-    lo, hi, unc = _outputs(queries)
-    n = queries.numel()
-    if n == 0:
-        return lo, hi, unc
-    _, threads, blocks = launch_config(n)
-    err = load_library().kslam_bucket_join(
-        queries.data_ptr(), tbl.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        unc.data_ptr(), n, bits, threads, blocks, index, stream)
-    _raise_on(err, "bucket_join", n)
-    JOIN_LAUNCHES["bucket_join"] += 1
-    return lo, hi, unc
+    return _bucket_launch(tbl, queries, bits)
+
+
+def bucket_join_bounds(tbl, queries, bits: int, index_kmers, q_ok):
+    """(lo, hi) of match.join_bounds with the bucket table from one
+    launch of the bucket_join kernel, tier 2 included: index_kmers are
+    the sorted, sentinel-padded keys the table was built from; CUDA
+    tensors only."""
+    return _bucket_launch(tbl, queries, bits, index_kmers, q_ok)
 
 
 def window_join(index_kmers, pstart, queries, prefix_bits: int,
                 window: int):
     """(lo, hi, uncovered) of lookup_prefix_window from one launch of
     the window_join kernel; CUDA tensors only."""
-    index, stream = _device_and_stream(queries)
-    check_window(index_kmers, pstart, queries, prefix_bits, window,
-                 aligned=True)
-    lo, hi, unc = _outputs(queries)
-    n = queries.numel()
-    if n == 0:
-        return lo, hi, unc
-    group, threads, blocks = launch_config(n, window)
-    err = load_library().kslam_window_join(
-        index_kmers.data_ptr(), index_kmers.shape[0], pstart.data_ptr(),
-        queries.data_ptr(), lo.data_ptr(), hi.data_ptr(), unc.data_ptr(),
-        n, prefix_bits, window, group, threads, blocks, index, stream)
-    _raise_on(err, "window_join", n)
-    JOIN_LAUNCHES["window_join"] += 1
-    return lo, hi, unc
+    return _window_launch(index_kmers, pstart, queries, prefix_bits, window)
+
+
+def window_join_bounds(index_kmers, pstart, queries, prefix_bits: int,
+                       window: int, q_ok):
+    """(lo, hi) of match.join_bounds with the prefix window from one
+    launch of the window_join kernel, tier 2 included; CUDA tensors
+    only."""
+    return _window_launch(index_kmers, pstart, queries, prefix_bits, window,
+                          q_ok)

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import K
-from . import join
+from . import join, join_cuda
 from .kmers import FLIP
 from .rows import lex_perm, shift1
 
@@ -103,18 +103,40 @@ def join_bounds(q_kmer, q_ok, index_kmers, idx_pstart=None,
     Tier 2: the q_ok queries a table leaves uncovered are compacted,
     searched exactly in index_kmers, and their bounds put back in place,
     so their pairs expand with all others (the reference appends them as
-    a block; finish_overlaps' sort makes the order moot)."""
+    a block; finish_overlaps' sort makes the order moot).
+
+    Off the CPU the bucket table and the prefix window are one launch of
+    their kernel with tier 2 inside it (join_cuda.bucket_join_bounds,
+    window_join_bounds): the same (lo, hi) on every query, with no
+    compaction and no host synchronisation."""
+    on_card = q_kmer.device.type != "cpu"
     if idx_bucket is not None and bucket_bits:
+        if on_card:
+            return join_cuda.bucket_join_bounds(idx_bucket, q_kmer,
+                                                bucket_bits, index_kmers,
+                                                q_ok)
         lo, hi, uncovered = join.lookup_bucket(idx_bucket, q_kmer,
                                                bucket_bits)
     elif idx_rows is not None and prefix_bits:
         lo, hi, uncovered = join.lookup_prefix_rows(
             idx_rows, idx_pstart2, q_kmer, prefix_bits, window)
     elif idx_pstart is not None and prefix_bits:
+        if on_card:
+            return join_cuda.window_join_bounds(index_kmers, idx_pstart,
+                                                q_kmer, prefix_bits, window,
+                                                q_ok)
         lo, hi, uncovered = join.lookup_prefix_window(
             index_kmers, idx_pstart, q_kmer, prefix_bits, window)
     else:
         return join.searchsorted_both(index_kmers, q_kmer)
+    return tier2(lo, hi, uncovered, q_kmer, q_ok, index_kmers)
+
+
+def tier2(lo, hi, uncovered, q_kmer, q_ok, index_kmers):
+    """join_bounds' tier 2 as torch ops: the kept queries a lookup left
+    uncovered are compacted (torch.nonzero, a host synchronisation),
+    searched exactly in index_kmers, and their bounds put back in place
+    (two out-of-place index_put copies).  Returns (lo, hi)."""
     sel = torch.nonzero(q_ok & (uncovered > 0)).reshape(-1)
     lo2, hi2 = join.searchsorted_both(index_kmers, q_kmer[sel])
     return lo.index_put((sel,), lo2), hi.index_put((sel,), hi2)

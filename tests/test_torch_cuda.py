@@ -517,13 +517,32 @@ def test_pseudo_assembly_device_cuda_vs_cpu(cuda_device):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
 
 
+def _card_join_bounds(q, q_ok, keys, name, **tables):
+    """match.join_bounds on the card: one launch of `name`, with the
+    CUDA sync debug mode at "error", so any host synchronisation inside
+    it raises."""
+    before = dict(join_cuda.JOIN_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = match.join_bounds(q, q_ok, keys, **tables)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = dict(join_cuda.JOIN_LAUNCHES)
+    assert after[name] == before[name] + 1, name
+    assert sum(after.values()) == sum(before.values()) + 1, name
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("skewed", [False, True], ids=["random", "skewed"])
 def test_join_backends_agree_on_cuda(cuda_device, skewed):
-    """lookup_bucket and lookup_prefix_window, each with the exact tier 2
-    on its uncovered queries, give the (lo, hi) of searchsorted_both on
-    the card, and the CPU's; skewed keys (runs of 300 and 40 equal keys,
-    a dense cluster of one prefix) leave queries to tier 2."""
+    """match.join_bounds through the bucket table and the prefix window
+    gives the (lo, hi) of searchsorted_both on the card, and the CPU's
+    join_bounds on every query; on the card each is one launch of its
+    kernel, tier 2 inside it, with no host synchronisation; skewed keys
+    (runs of 300 and 40 equal keys, a dense cluster of one prefix) leave
+    queries to tier 2."""
     rng = np.random.default_rng(23)
     words = rng.integers(0, 2**64 - 1, 200_000, dtype=np.uint64)
     if skewed:
@@ -539,31 +558,86 @@ def test_join_backends_agree_on_cuda(cuda_device, skewed):
                               rng.integers(0, 2**64 - 1, 100_000,
                                            dtype=np.uint64)])
     q_np = kmers.keys_from_words_np(q_words)
+    ok_np = rng.random(len(q_np)) < 0.9
     results = {}
     for dev in ("cpu", cuda_device):
         k = torch.as_tensor(keys).to(dev)
         q = torch.as_tensor(q_np).to(dev)
-        q_ok = torch.ones(q.shape, dtype=torch.bool, device=dev)
+        q_ok = torch.as_tensor(ok_np).to(dev)
         exact = join.searchsorted_both(k, q)
         tables = {
-            "bucket": dict(idx_bucket=torch.from_numpy(np.array(tbl)).to(dev),
-                           bucket_bits=bbits),
-            "window": dict(idx_pstart=torch.as_tensor(pstart).to(dev),
-                           prefix_bits=bits, window=window)}
+            "bucket_join": dict(
+                idx_bucket=torch.from_numpy(np.array(tbl)).to(dev),
+                bucket_bits=bbits),
+            "window_join": dict(idx_pstart=torch.as_tensor(pstart).to(dev),
+                                prefix_bits=bits, window=window)}
         if skewed:
-            assert int((join.lookup_bucket(tables["bucket"]["idx_bucket"],
-                                           q, bbits)[2] > 0).sum()) > 0
-            assert int((join.lookup_prefix_window(
-                k, tables["window"]["idx_pstart"], q, bits,
-                window)[2] > 0).sum()) > 0
+            assert int((q_ok & (join.lookup_bucket(
+                tables["bucket_join"]["idx_bucket"], q,
+                bbits)[2] > 0)).sum()) > 0
+            assert int((q_ok & (join.lookup_prefix_window(
+                k, tables["window_join"]["idx_pstart"], q, bits,
+                window)[2] > 0)).sum()) > 0
         for name, kw in tables.items():
-            for a, b_ in zip(match.join_bounds(q, q_ok, k, **kw), exact):
-                assert torch.equal(a, b_), name
-        results[str(dev)] = [x.cpu() for x in exact]
-    for a, b_ in zip(results["cpu"], results[str(cuda_device)]):
-        assert torch.equal(a, b_)
-    np.testing.assert_array_equal(results["cpu"][0].numpy(),
+            if dev == "cpu":
+                got = match.join_bounds(q, q_ok, k, **kw)
+            else:
+                got = _card_join_bounds(q, q_ok, k, name, **kw)
+            for a, b_ in zip(got, exact):
+                assert torch.equal(a[q_ok], b_[q_ok]), name
+            results[(str(dev), name)] = [x.cpu() for x in got]
+        results[(str(dev), "exact")] = [x.cpu() for x in exact]
+    for name in ("bucket_join", "window_join", "exact"):
+        for a, b_ in zip(results[("cpu", name)],
+                         results[(str(cuda_device), name)]):
+            assert torch.equal(a, b_), name
+    np.testing.assert_array_equal(results[("cpu", "exact")][0].numpy(),
                                   np.searchsorted(words, q_words, "left"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bucket16", "bucket21", "runs4", "runs16",
+                                  "runs128", "runs4096", "shard"])
+def test_fused_join_bounds_on_edges(cuda_device, case):
+    """join_bounds on the card equals the CPU's on every query for every
+    q_ok pattern: the bucket table with every count 0..8 and both escapes
+    (2^16 and 2^21 rows), prefix windows with long runs and real all-ones
+    keys at w = 4 to 4096, and a mesh shard's collapsed prefixes; one
+    launch each, with no host synchronisation."""
+    rng = np.random.default_rng(89)
+    if case.startswith("bucket"):
+        bits = int(case[6:])
+        words = join_cases.bucket_index_words(rng, bits=bits)
+        tbl, bits = KmerIndex(words, *(np.zeros(len(words), t) for t in (
+            np.int32, np.int32, bool))).bucket_table(bits=bits)
+        padded = join_cases.sentinel_padded(words, 16)
+        name = "bucket_join"
+        tables = dict(idx_bucket=torch.from_numpy(tbl), bucket_bits=bits)
+    else:
+        bits, window = (6, int(case[4:])) if case != "shard" else (8, 16)
+        words, padded, pstart = join_cases.run_edge_words(rng, bits, window)
+        if case == "shard":
+            padded, pstart = join_cases.prefix_shard(
+                words, pstart, len(words) // 3, 2 * len(words) // 3, window)
+        name = "window_join"
+        tables = dict(idx_pstart=torch.as_tensor(pstart), prefix_bits=bits,
+                      window=window)
+    keys = torch.as_tensor(kmers.keys_from_words_np(padded))
+    q = torch.as_tensor(kmers.keys_from_words_np(
+        join_cases.queries_for(words, rng, 20_000)))
+    for mask in ("all", "none", "random"):
+        ok = {"all": np.ones(q.shape[0], bool),
+              "none": np.zeros(q.shape[0], bool),
+              "random": rng.random(q.shape[0]) < 0.5}[mask]
+        q_ok = torch.as_tensor(ok)
+        want = match.join_bounds(q, q_ok, keys, **tables)
+        got = _card_join_bounds(
+            q.to(cuda_device), q_ok.to(cuda_device), keys.to(cuda_device),
+            name, **{k: v.to(cuda_device) if isinstance(v, torch.Tensor)
+                     else v for k, v in tables.items()})
+        for a, b_ in zip(got, want):
+            assert a.device.type == "cuda" and a.dtype == torch.int64
+            assert torch.equal(a.cpu(), b_), (case, mask)
 
 
 def _kernel_vs_plain(kernel, plain, cpu_args, dev, name):
@@ -630,11 +704,12 @@ def test_bucket_join_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,window", [(12, 4), (10, 8), (8, 16), (9, 32),
-                                         (10, 64), (12, 128)])
+                                         (10, 64), (12, 128), (8, 2),
+                                         (9, 256)])
 def test_window_join_matches_plain(cuda_device, bits, window):
     """The window_join kernel gives lookup_prefix_window_plain's (lo, hi,
-    uncovered) on every query at each group size (G = 4, 8, 16, 32 lanes,
-    1, 2 and 4 steps), an uncovered run included."""
+    uncovered) on every query at windows 2 to 256, an uncovered run and
+    the all-ones word included."""
     rng = np.random.default_rng(53)
     km, padded, pstart = join_cases.prefix_index_words(rng, bits, window)
     q = join_cases.queries_for(km, rng)
@@ -653,9 +728,9 @@ def test_window_join_matches_plain(cuda_device, bits, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 4097])
 def test_join_kernels_at_query_counts(cuda_device, n):
-    """Query counts off the block (256 threads; 16 window queries per
-    block at w = 16) and zero queries, which launch nothing; a [1, n]
-    query tensor keeps its shape."""
+    """Query counts off the block (256 threads, one query each) and zero
+    queries, which launch nothing; a [1, n] query tensor keeps its
+    shape."""
     rng = np.random.default_rng(59)
     words = join_cases.bucket_index_words(rng, n_random=2000)
     tbl, bits = KmerIndex(words, *(np.zeros(len(words), t) for t in (
@@ -706,9 +781,10 @@ def test_join_kernels_on_several_tables_and_cards(cuda_device):
 
 @pytest.mark.cuda
 def test_join_bounds_with_the_kernels(cuda_device):
-    """match.join_bounds on the card, through each kernel and its exact
-    tier 2, gives the exact search's (lo, hi) on every kept query of a
-    repeat-rich index's reads, and the CPU's join_bounds on every query."""
+    """match.join_bounds on the card, one launch of each kernel with its
+    tier 2 inside, gives the exact search's (lo, hi) on every kept query
+    of a repeat-rich index's reads, and the CPU's join_bounds on every
+    query, with no host synchronisation."""
     kidx = _realistic_index()
     keys, _, pstart, bits, window = join_columns(kidx)
     tbl, bbits = kidx.bucket_table()
@@ -733,10 +809,12 @@ def test_join_bounds_with_the_kernels(cuda_device):
             "window_join": dict(idx_pstart=torch.as_tensor(pstart).to(dev),
                                 prefix_bits=bits, window=window)}
         for name, kw in tables.items():
-            before = dict(join_cuda.JOIN_LAUNCHES)
-            got = match.join_bounds(q, q_ok, k, **kw)
-            launched = join_cuda.JOIN_LAUNCHES[name] - before[name]
-            assert launched == (1 if dev != "cpu" else 0), name
+            if dev == "cpu":
+                before = dict(join_cuda.JOIN_LAUNCHES)
+                got = match.join_bounds(q, q_ok, k, **kw)
+                assert join_cuda.JOIN_LAUNCHES == before
+            else:
+                got = _card_join_bounds(q, q_ok, k, name, **kw)
             for a, b_ in zip(got, exact):
                 assert torch.equal(torch.where(q_ok, a, 0),
                                    torch.where(q_ok, b_, 0)), name
