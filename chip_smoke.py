@@ -7,7 +7,8 @@ Phases (each prints its own line; any failure exits non-zero):
   1. device: the card's name and power limit; a CUDA device is required.
   2. build: the CUDA kernel library (ops/cuda_lib.py: one nvcc per
      kslam_tpu_torch/csrc/*.cu, all started together, linked into one
-     library: the SW kernels and the join's bucket_join and window_join;
+     library: the SW kernels and the join's sector_join, bucket_join
+     and window_join;
      ptxas's registers and spills of every kernel are printed) and the
      native host library (make -C csrc, the first of $CXX, g++, c++ that
      links OpenMP), built in parallel; both must load.
@@ -41,6 +42,10 @@ Phases (each prints its own line; any failure exits non-zero):
      x clocks.max.sm); the cells the fused kernel computes and the
      rectangle's are printed beside them.  Then the join kernels against
      their plain versions on every query (lo, hi, uncovered):
+     sector_join on indexes whose sector tables (2^16 and 2^21 rows,
+     each built on the card and equal bit for bit to the CPU's build)
+     have rows of every count 0..6, both kinds of escape and the edge
+     words, and on a 2^12-row table where most queries escape;
      bucket_join on an index with bucket rows of every count 0..8, both
      kinds of escape and the edge words; window_join at windows 8 to 128
      with an uncovered run, at 4 to 128 on long runs and real all-ones
@@ -59,18 +64,18 @@ Phases (each prints its own line; any failure exits non-zero):
      kernel, and the resumed run must equal an uninterrupted one.
      Phases 4-10 also count each path's join kernel launches (reset just
      before the run, read just after): every path on the card must join
-     through the kernel of its table (bucket_join with the bucket table;
-     window_join on a mesh and with --no-prefix-rows) and launch the
-     other none; the cpu runs launch neither.
+     through the kernel of its table (sector_join with the sector table
+     DeviceDB builds at load; window_join on a mesh and with
+     --no-prefix-rows) and launch no other; the cpu runs launch none.
   5. real size: the 1.6 Gbp synthetic DB of the reference package's
      bench (16 genomes x 100 Mbp, ~1e8 stride-16 index k-mers) and
      262,144 planted 150 bp reads (131,072 pairs, 1% mutations) through
      the CLI on cuda; >= 99% of the pairs must get their genome's taxid.
-     Before the run, the DB's bucket table (2^26 rows x 64 B) is built
-     once by the port's KmerIndex.bucket_table into the DB directory's
-     cache, timed, and loaded back as later runs do (index, memory map,
-     copy), timed; every CLI run here and below loads that cache and
-     joins with the bucket table and its exact tier 2.
+     Every CLI run here and below builds the sector table on the card at
+     load (DeviceDB.from_index) and joins with it and its exact tier 2;
+     phases 5-9 print db_load split into the host columns, the H2D
+     copies, the table's build and the rest, and the peak device memory
+     at the load's end and over the run.
      Every SW launch must be a fused sw_align launch (4 at the default
      size, one per batch of 32,768 candidates); prints the launches and
      rectangle cells on this path and the cells per second over the
@@ -105,8 +110,11 @@ Phases (each prints its own line; any failure exits non-zero):
      own count, and McNemar between depths 1 and 3 must find 0
      discordant reads.
  10. join kernels: phase 5's DB and the k-mers of all its reads at
-     once (31.7 M query positions at the default size): bucket_join
-     (lookup_bucket) and window_join (lookup_prefix_window) must equal
+     once (31.7 M query positions at the default size): the reference's
+     bucket table built on the host (timed, not cached), the sector
+     table built on the card (timed) and on the CPU, equal bit for bit;
+     sector_join (lookup_sector), bucket_join (lookup_bucket) and
+     window_join (lookup_prefix_window) must equal
      their plain versions on every query, and ops/match.join_bounds
      through each (one launch, tier 2 inside) the exact search
      (searchsorted_both, the library call) on every kept query and the
@@ -120,11 +128,17 @@ Phases (each prints its own line; any failure exits non-zero):
      entries and run keys the queries read, tier 2's distinct keys, the
      outputs; beside it window_join's two-row bound, which counts the
      two rows around each run) and share, and the share of kept
-     queries sent to tier 2.  Then a repeat-rich index (>= 1e7 keys
+     queries sent to tier 2; the sector join_bounds under
+     set_sync_debug_mode("error").  The sector table also at 2^(L-2),
+     2^(L-1) and 2^L rows (L = ceil(log2 keys)): each built on the card
+     (timed), checked as above, its join_bounds timed in the same turns,
+     with its bytes bound (32 B rows) and tier-2 share, and the smallest
+     size within the fastest one's spread printed beside
+     sector_table.default_bits.  Then a repeat-rich index (>= 1e7 keys
      from eval/realistic genomes, built in the run, and the k-mers of
      reads copied from them; >= 1% of kept queries to tier 2 with the
-     bucket table): the same checks, join_bounds against the
-     composition on both tables in turns.  Then one --no-prefix-rows
+     bucket table): the same checks and timings, the sector table also
+     at 2^25-2^27 rows.  Then one --no-prefix-rows
      CLI run on cuda (window_join on the path), byte-identical to phase
      5's.  Its numbers are printed as one {"join": ...} line.
 Phase 4 also runs, on cuda, --mesh 2x2 (classification), --mesh 1x4
@@ -136,8 +150,9 @@ chunks.  Each must launch the kernel and write what the single-device
 CPU run wrote (the two-process SAM compared as one header and its body
 lines sorted).
 The last three lines are the card's name and power limit (nvidia-smi),
-a JSON object describing each kernel (the SW kernels and the join
-kernels, each with its launches on its paths), and the contract object
+a JSON object describing each kernel (the SW kernels and the three
+join kernels, each with its launches on its paths), and the contract
+object
 {"ok": true, "device": {...}}.
 """
 
@@ -439,16 +454,21 @@ def phase_kernel(rng, dev, b: int = 32768):
 
 def phase_join_kernels(rng, dev) -> None:
     """The join kernels against their plain versions on the card, on
-    every query, beside phase 10's full-size run: bucket_join on an
-    index whose table has rows of every count 0..8, both kinds of escape
-    and the edge words; window_join at w = 8 to 128 with an uncovered
-    run, and at w = 4 to 128 on runs at the run-only read's edges (a
+    every query, beside phase 10's full-size run: sector_join on indexes
+    whose tables (2^16 and 2^21 rows) have rows of every count 0..6, both
+    kinds of escape and the edge words, and on a 2^12-row table where
+    most queries escape, each table built on the card and equal to the
+    CPU's bit for bit; bucket_join on an index whose table has rows of
+    every count 0..8, both kinds of escape and the edge words;
+    window_join at w = 8 to 128 with an uncovered run, and at w = 4 to
+    128 on runs at the run-only read's edges (a
     long run of 3w + 1 keys, real all-ones keys before the sentinels, the
     zero word) and on a mesh shard's collapsed prefixes; query counts 1,
     255 and 257 (off the block).  Each lookup (lo, hi, uncovered) must
     equal the plain version's, and match.join_bounds through its kernel
     (one launch, tier 2 inside) the plain lookup + tier 2 on every query
     for q_ok all, none and a random half."""
+    from kslam_tpu_torch.db import sector_table
     from kslam_tpu_torch.db.kmer_index import KmerIndex
     from kslam_tpu_torch.eval import join_cases
     from kslam_tpu_torch.ops import join, join_cuda, kmers, match
@@ -463,6 +483,28 @@ def phase_join_kernels(rng, dev) -> None:
         join.lookup_bucket(d_tbl, q, bits),
         join.lookup_bucket_plain(d_tbl, q, bits)),
         dict(idx_bucket=d_tbl, bucket_bits=bits))]
+    few = np.sort(np.concatenate([
+        rng.integers(0, 2**64 - 1, 50_000, dtype=np.uint64),
+        join_cases.EDGES, np.full(300, join_cases.EDGES[7])]))
+    for name, s_words, s_bits in (
+            ("sector_join 2^16 rows", join_cases.sector_index_words(
+                rng, bits=16), 16),
+            ("sector_join 2^21 rows", join_cases.sector_index_words(
+                rng, bits=21), 21),
+            ("sector_join 2^12 rows (most escape)", few, 12)):
+        keys = torch.as_tensor(kmers.keys_from_words_np(
+            join_cases.sentinel_padded(s_words, 16)))
+        s_tbl = sector_table.build(keys.to(dev), len(s_words), s_bits)
+        if not torch.equal(s_tbl.cpu(), sector_table.build(
+                keys, len(s_words), s_bits)):
+            raise AssertionError(f"{name}: the table built on the card "
+                                 f"differs from the CPU's")
+        cases.append((name, s_words, keys.to(dev), lambda q, t=s_tbl,
+                      b=s_bits: (join.lookup_sector(t, q, b),
+                                 join.lookup_sector_plain(t, q, b)),
+                      dict(idx_sector=s_tbl, sector_bits=s_bits)))
+        log(f"  {name}: the table built on the card equals the CPU's "
+            f"bit for bit")
     tables = [(f"window_join w={w}", b, w,
                join_cases.prefix_index_words(rng, b, w))
               for b, w in ((10, 8), (8, 16), (9, 32), (10, 64), (12, 128))]
@@ -872,31 +914,6 @@ def build_db(root: str, genomes, taxids) -> float:
     return time.perf_counter() - t0
 
 
-def bucket_table_seconds(db: str) -> dict:
-    """Builds the DB's bucket table once with the port's
-    KmerIndex.bucket_table (written to the DB directory's cache, as a
-    user's first run does), then loads it as a later run does: the index,
-    the memory-mapped cache and the copy DeviceDB.from_index makes."""
-    from kslam_tpu_torch.db.kmer_index import KmerIndex
-    t0 = time.perf_counter()
-    kidx = KmerIndex.load(db)
-    t1 = time.perf_counter()
-    tbl, bits = kidx.bucket_table()
-    t2 = time.perf_counter()
-    if not os.path.exists(os.path.join(db, "bucket_table.npy")):
-        raise AssertionError("the bucket table was not cached")
-    del kidx, tbl
-    t3 = time.perf_counter()
-    cached, _ = KmerIndex.load(db).bucket_table()
-    copy = np.array(cached)
-    t4 = time.perf_counter()
-    if not isinstance(cached, np.memmap):
-        raise AssertionError("the second load did not read the cache")
-    return dict(bits=bits, rows=copy.shape[0], bytes=copy.nbytes,
-                index_load_s=t1 - t0, build_s=t2 - t1,
-                cached_load_s=t4 - t3)
-
-
 def run_cli(db: str, out: str, r1: str, r2, device: str,
             flags=()) -> float:
     """One port CLI run (r2 None: single-end); returns its wall seconds."""
@@ -947,7 +964,7 @@ def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
             f"launches")
         if device == "cuda":
             check_fused(f"{name} cuda", launched, fused)
-            check_join(f"{name} cuda", joins, "bucket_join",
+            check_join(f"{name} cuda", joins, "sector_join",
                        path=f"small_{name}")
         elif launched or any(joins.values()):
             raise AssertionError(f"{name}: {launched} SW launches, join "
@@ -967,7 +984,7 @@ def run_mesh_cuda(tmp: str, db: str, name: str, r1: str, r2, flags,
     """One CLI run on cuda with `flags` (a mesh, a chunk-pipeline depth);
     its files must equal `want` (the single-device CPU run's files),
     every SW launch fused, every join through the kernel of its table
-    (window_join per mesh shard, else bucket_join).  Returns its fused
+    (window_join per mesh shard, else sector_join).  Returns its fused
     sw_align launches."""
     from kslam_tpu_torch.ops import sw_cuda
     out = os.path.join(tmp, f"small_{name}_cuda")
@@ -977,7 +994,7 @@ def run_mesh_cuda(tmp: str, db: str, name: str, r1: str, r2, flags,
     secs = run_cli(db, out, r1, r2, "cuda", extra)
     launched, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
     check_join(name, join_launches(), "window_join" if "--mesh" in flags
-               else "bucket_join", path=f"small_{name}")
+               else "sector_join", path=f"small_{name}")
     same = read_outputs(out, sam) == want
     log(f"  {name} cuda: {secs:.2f} s, {launched} SW kernel launches; "
         f"outputs byte-identical to the single-device CPU run: {same}")
@@ -996,8 +1013,9 @@ _CLI_PROCESS = (
     "rc = cli.main(sys.argv[1:])\n"
     "print('SW launches', sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES,\n"
     "      flush=True)\n"
-    "print('join launches', join_cuda.JOIN_LAUNCHES['bucket_join'],\n"
-    "      join_cuda.JOIN_LAUNCHES['window_join'], flush=True)\n"
+    "import json\n"
+    "print('join launches', json.dumps(join_cuda.JOIN_LAUNCHES),\n"
+    "      flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -1009,7 +1027,7 @@ def free_port() -> int:
 
 def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
                       name: str = "small_two_process_cuda",
-                      visible=None, join_kernel: str = "bucket_join") -> int:
+                      visible=None, join_kernel: str = "sector_join") -> int:
     """--coordinator localhost:PORT --num-processes 2 on cuda; returns
     the processes' fused sw_align launches (every SW launch fused, every
     join through join_kernel: window_join where a process's cards form a
@@ -1044,14 +1062,13 @@ def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
     launches, fused, joins = [], [], []
     for pid, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
         m = re.search(r"SW launches (\d+) (\d+)", stdout)
-        j = re.search(r"join launches (\d+) (\d+)", stdout)
+        j = re.search(r"join launches (\{.*\})", stdout)
         if p.returncode != 0 or m is None or j is None:
             raise AssertionError(f"process {pid} exited {p.returncode}:\n"
                                  f"{stderr[-3000:]}")
         launches.append(int(m.group(1)))
         fused.append(int(m.group(2)))
-        joins.append({"bucket_join": int(j.group(1)),
-                      "window_join": int(j.group(2))})
+        joins.append(json.loads(j.group(1)))
 
     def split_sam(text: bytes):
         lines = text.splitlines(keepends=True)
@@ -1154,7 +1171,7 @@ def phase_e2e_small(rng, tmp: str) -> None:
     launches["two_process"] = run_two_processes(
         tmp, db, s1, s2, ["--num-reads-at-once", "200"], full,
         join_kernel="window_join" if torch.cuda.device_count() > 1
-        else "bucket_join")
+        else "sector_join")
     out = os.path.join(tmp, "small_resumed_cuda")
     flags = flags + ["--sam-file", out + ".sam"]
     real = run_mod.process_chunk
@@ -1214,17 +1231,56 @@ def zero_join_launches() -> None:
 
 def check_join(name: str, launched: dict, kernel: str, path=None) -> None:
     """Every join of a path on the card went through `kernel`, the
-    lookup of the path's table (bucket_join with the bucket table,
+    lookup of the path's table (sector_join with the sector table,
     window_join with the prefix window): at least one launch of it and
-    none of the other.  path: the name the kernels line lists it under."""
-    other = "window_join" if kernel == "bucket_join" else "bucket_join"
-    log(f"  {name}: {launched[kernel]} {kernel} launches, "
-        f"{launched[other]} {other} launches")
-    if launched[kernel] == 0 or launched[other] != 0:
+    none of any other join kernel.  path: the name the kernels line
+    lists it under."""
+    others = {k: v for k, v in launched.items() if k != kernel}
+    log(f"  {name}: {launched[kernel]} {kernel} launches; others {others}")
+    if launched[kernel] == 0 or any(others.values()):
         raise AssertionError(f"{name}: join launches {launched}, expected "
                              f"{kernel} only")
     if path is not None:
         JOIN_PATHS[path] = {kernel: launched[kernel]}
+
+
+# DeviceDB.from_index's device peak at the end of each load, read by the
+# phases' load lines (the CLI's load runs inside cli.main)
+LOAD_PEAKS = []
+
+
+def record_load_peaks() -> None:
+    """Wraps DeviceDB.from_index so that each load on the card appends
+    torch.cuda.max_memory_allocated() at its end to LOAD_PEAKS."""
+    from kslam_tpu_torch.pipeline import align
+    load = align.DeviceDB.from_index.__func__
+
+    def from_index(cls, *args, **kwargs):
+        db = load(cls, *args, **kwargs)
+        if db.kmers.device.type == "cuda":
+            LOAD_PEAKS.append(torch.cuda.max_memory_allocated(
+                db.kmers.device))
+        return db
+    align.DeviceDB.from_index = classmethod(from_index)
+
+
+def load_line(name: str, stages: dict, peak: int) -> dict:
+    """Logs a run's db_load split (host columns, H2D copies, the sector
+    table's build on the card, the rest: taxonomy and index files), the
+    peak device memory at the end of the load and over the run; returns
+    the numbers."""
+    sec = {k: stages.get(k, {}).get("seconds", 0.0)
+           for k in ("db_load", "db_load_host", "db_load_h2d",
+                     "db_load_table")}
+    rest = sec["db_load"] - sec["db_load_host"] - sec["db_load_h2d"] - \
+        sec["db_load_table"]
+    load_peak = LOAD_PEAKS[-1] if LOAD_PEAKS else None
+    log(f"  {name} db_load {sec['db_load']:.4f} s: host columns "
+        f"{sec['db_load_host']:.4f} s, H2D {sec['db_load_h2d']:.4f} s, "
+        f"sector table on the card {sec['db_load_table']:.4f} s, the rest "
+        f"(taxonomy, index and genome files) {rest:.4f} s; peak device "
+        f"memory at the load's end {load_peak} B, over the run {peak} B")
+    return dict(sec, rest=rest, load_peak_bytes=load_peak, peak_bytes=peak)
 
 
 def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
@@ -1250,13 +1306,6 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     del r1, r2
     log(f"  DB {n_genomes} x {glen / 1e6:.1f} Mbp: genomes {gen_s:.1f} s, "
         f"host DB build + save {build_s:.1f} s")
-    table = bucket_table_seconds(db)
-    log(f"  bucket table {table['rows']} rows x 64 B = "
-        f"{table['bytes']} B: first build + save {table['build_s']:.4f} s "
-        f"(index load {table['index_load_s']:.4f} s before it); cached "
-        f"load (index load, memory map, copy) {table['cached_load_s']:.4f} "
-        f"s; the CLI runs below load the cache")
-
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
@@ -1265,11 +1314,12 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     wall = run_cli(db, out, os.path.join(tmp, "r1.fq"),
                    os.path.join(tmp, "r2.fq"), "cuda")
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
-    check_join("the main path", join_launches(), "bucket_join",
+    check_join("the main path", join_launches(), "sector_join",
                path="device_pipeline")
     cells = sw_cuda.LAUNCH_CELLS
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
+    load = load_line("classification", stages, peak)
     per_read = dict(line.split("\t") for line in
                     open(out + "_PerRead").read().strip().split("\n"))
     hits = sum(per_read.get(f"r{i}") == str(taxids[k])
@@ -1295,7 +1345,7 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     check_fused("the main path", launches, fused, expect)
     return launches, fused, cells, dict(
         db=db, r1=os.path.join(tmp, "r1.fq"), r2=os.path.join(tmp, "r2.fq"),
-        g=g, at=at, taxids=taxids, out=out, peak=peak, table=table,
+        g=g, at=at, taxids=taxids, out=out, peak=peak, load=load,
         stages=stages)
 
 
@@ -1311,9 +1361,10 @@ def phase_sam(ctx, tmp: str):
     wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
                    ["--sam-file", out + ".sam"])
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
-    check_join("the SAM path", join_launches(), "bucket_join", path="sam")
+    check_join("the SAM path", join_launches(), "sector_join", path="sam")
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
+    load_line("SAM run", stages, peak)
     first = {}            # read name -> (RNAME, POS) of its R1 primary line
     n_lines = 0
     with open(out + ".sam") as fh:
@@ -1361,10 +1412,11 @@ def phase_host_path(ctx, tmp: str, n_pairs: int):
     wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
                    ["--device-pipeline", "off", "--num-reads", str(n_pairs)])
     launches, through_align = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
-    check_join("the host-object path", join_launches(), "bucket_join",
+    check_join("the host-object path", join_launches(), "sector_join",
                path="host_object_path")
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
+    load_line("host-object path", stages, peak)
     per_read = dict(line.split("\t") for line in
                     open(out + "_PerRead").read().strip().split("\n"))
     g, taxids = ctx["g"][:n_pairs], ctx["taxids"]
@@ -1495,10 +1547,11 @@ def phase_pipeline(ctx, tmp: str, chunk_pairs: int, expect=None):
                                 else []))
         launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
         check_join(f"chunk pipeline depth {depth} turn {turn}",
-                   join_launches(), "bucket_join",
+                   join_launches(), "sector_join",
                    path=f"chunk_pipeline_depth{depth}")
         peak = torch.cuda.max_memory_allocated()
         stages = metrics.summary()
+        load_line(f"depth {depth} (turn {turn})", stages, peak)
         loop_s = wall - stages.get("db_load", {}).get("seconds", 0.0)
         per_read = dict(line.split("\t") for line in
                         open(out + "_PerRead").read().strip().split("\n"))
@@ -1633,9 +1686,10 @@ def join_bytes(q, q_ok, d_keys, d_tbl, bbits: int, d_pstart, bits: int,
     2; tier 2's search is modelled by search_probes, whose bounds must
     be the exact search's.  Returns {call: bytes}, {call: per-query
     bytes}, {table: kept queries to tier 2}."""
+    from kslam_tpu_torch.db import sector_table
     from kslam_tpu_torch.ops import join
     n_q = q.numel()
-    row = join._bucket_of(q, bbits)
+    row = sector_table.row_of(q, bbits)
     rows = int(torch.unique(row).numel())
     start = d_tbl[:, 0][row].to(torch.int64)
     cntf = d_tbl[:, 1][row]
@@ -1695,6 +1749,201 @@ def join_bytes(q, q_ok, d_keys, d_tbl, bbits: int, d_pstart, bits: int,
                               "window": int(t2w.sum())}
 
 
+def sector_bytes(q, q_ok, d_keys, s_tbl, sbits: int):
+    """The least bytes the sector table's calls move on these queries,
+    each input read once and each output written once: the 8 B keys and
+    the distinct 32 B rows; the lookup writes lo, hi and uncovered (20 B
+    a query), join_bounds lo and hi (16 B) and also reads q_ok of the
+    escaped queries (1 B) and the distinct index keys tier 2's searches
+    read (8 B; search_probes, whose bounds must be the exact search's).
+    Returns ({"lookup": bytes, "join_bounds": bytes}, the lookup's bytes
+    with nothing shared (a row each), kept queries to tier 2, escaped
+    queries)."""
+    from kslam_tpu_torch.db import sector_table as st
+    from kslam_tpu_torch.ops import join
+    n_q = q.numel()
+    row = st.row_of(q, sbits)
+    rows = int(torch.unique(row).numel())
+    r = s_tbl[row]
+    del row
+    escaped = ((r[:, 7] >> st.ESCAPE_SHIFT) & 1) == 1
+    start = r[:, 0].to(torch.int64)
+    run = r[:, 2].to(torch.int64)
+    del r
+    t2 = q_ok & escaped & (run > 0)
+    sel = q[t2]
+    lo, hi, probes = search_probes(d_keys, start[t2], start[t2] + run[t2],
+                                   sel)
+    exact = join.searchsorted_both(d_keys, sel)
+    if not (torch.equal(lo, exact[0]) and torch.equal(hi, exact[1])):
+        raise AssertionError("search_probes differs from the exact search")
+    keys_t2 = int(torch.unique(probes).numel())
+    n_esc = int(escaped.sum())
+    moved = {"lookup": n_q * 28 + rows * 32,
+             "join_bounds": n_q * 24 + rows * 32 + n_esc + keys_t2 * 8}
+    return moved, n_q * 60, int(t2.sum()), n_esc
+
+
+def sweep_bits(m: int, extra=()):
+    """The sector table sizes phase 10 tries for m keys: 2^(L - 2),
+    2^(L - 1) and 2^L rows with L = ceil(log2(m)), and `extra`, within
+    the table's 21..27 bits."""
+    from kslam_tpu_torch.db import sector_table as st
+    log2_keys = (max(m, 2) - 1).bit_length()
+    return sorted({min(max(b, st.MIN_BITS), st.MAX_BITS)
+                   for b in [log2_keys - 2, log2_keys - 1, log2_keys,
+                             *extra]})
+
+
+def build_seconds(d_keys, m: int, bits: int, turns: int = 3):
+    """The sector table built on the card `turns` times (host clock, the
+    card synchronised before and after each); returns (the last table,
+    the seconds of each build)."""
+    from kslam_tpu_torch.db import sector_table
+    secs, tbl = [], None
+    for _ in range(turns):
+        del tbl
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tbl = sector_table.build(d_keys, m, bits)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return tbl, secs
+
+
+def sector_sweep(q, q_ok, d_keys, m: int, bits_list, exact):
+    """The sector table at each of bits_list, built on the card (timed);
+    its lookup equal to the plain version's on every query and
+    join_bounds through it (one launch) equal to the plain lookup + tier
+    2 on every query and to `exact` (searchsorted_both) on every kept
+    query; its bytes and tier-2 share.  Returns ({bits: table}, {bits:
+    numbers}, {call name: fn} of its join_bounds, {call name: bytes})."""
+    from kslam_tpu_torch.ops import join, join_cuda, match
+    n_ok = int(q_ok.sum())
+    tables, info, calls, moved = {}, {}, {}, {}
+    for b in bits_list:
+        tbl, secs = build_seconds(d_keys, m, b)
+        got = join.lookup_sector(tbl, q, b)
+        plain = join.lookup_sector_plain(tbl, q, b)
+        err = max_abs_err(got, plain)
+        del got
+        before = join_cuda.JOIN_LAUNCHES["sector_join"]
+        fused = match.join_bounds(q, q_ok, d_keys, idx_sector=tbl,
+                                  sector_bits=b)
+        launched = join_cuda.JOIN_LAUNCHES["sector_join"] - before
+        same = max_abs_err(fused, match.tier2(*plain, q, q_ok, d_keys))
+        kept = all(torch.equal(torch.where(q_ok, a, 0),
+                               torch.where(q_ok, c, 0))
+                   for a, c in zip(fused, exact))
+        del fused, plain
+        by, per_q, t2, n_esc = sector_bytes(q, q_ok, d_keys, tbl, b)
+        name = f"sector_join_bounds@{b}"
+        info[b] = dict(build_s=secs, table_bytes=int(tbl.nbytes),
+                       max_abs_err=err, to_tier2=t2,
+                       tier2_share=t2 / max(n_ok, 1),
+                       escaped_queries=n_esc, lookup_bytes=by["lookup"],
+                       join_bounds_bytes=by["join_bounds"])
+        log(f"  sector table 2^{b} rows ({int(tbl.nbytes)} B): built on "
+            f"the card in {[round(x, 4) for x in secs]} s; lookup equal to "
+            f"the plain version on every query: {err == 0}; join_bounds "
+            f"{launched} launch, equal to the plain lookup + tier 2: "
+            f"{same == 0}, to searchsorted_both on kept queries: {kept}; "
+            f"{t2} kept queries to tier 2 ({t2 / max(n_ok, 1):.4%})")
+        if err or same or not kept or launched != 1:
+            raise AssertionError(f"sector_join at {b} bits differs from its "
+                                 f"plain version or the exact search")
+        tables[b] = tbl
+        calls[name] = (lambda t=tbl, bb=b: match.join_bounds(
+            q, q_ok, d_keys, idx_sector=t, sector_bits=bb))
+        moved[name] = by["join_bounds"]
+    return tables, info, calls, moved
+
+
+def time_flushed(calls: dict, rounds: int = 5):
+    """Every call timed with CUDA events in turns (the order, then
+    reversed, `rounds` times), each after a write of twice the L2 cache,
+    so that every call starts from the same cold cache whatever ran
+    before it.  Returns {name: (mean ms, the readings)}."""
+    flush = torch.empty(25 * 2**20, dtype=torch.int32, device="cuda")
+    times = {k: [] for k in calls}
+    order = list(calls)
+    for name in (order + order[::-1]) * rounds:
+        flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = calls[name]()
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end))
+        del out
+    return {k: (sum(v) / len(v), v) for k, v in times.items()}
+
+
+def pick_bits(timed: dict, info: dict):
+    """The rule of sector_table.default_bits on this run's readings: the
+    smallest table whose mean join_bounds time lies within the spread
+    (max - min of its turns) of the fastest table's mean.  Returns (bits,
+    the fastest bits)."""
+    means = {b: timed[f"sector_join_bounds@{b}"][0] for b in info}
+    fastest = min(means, key=means.get)
+    turns = timed[f"sector_join_bounds@{fastest}"][1]
+    spread = max(turns) - min(turns)
+    return min(b for b, ms in means.items()
+               if ms <= means[fastest] + spread), fastest
+
+
+def sweep_report(timed: dict, info: dict, moved: dict, calls: dict,
+                 name: str):
+    """Logs and returns each table size's join_bounds time (in phase
+    10's turns, and in turns of its own after an L2 flush each, which
+    the rule reads), bound, share, tier-2 share and build time, and the
+    rule's pick."""
+    from kslam_tpu_torch.db import sector_table
+    flushed = time_flushed(calls)
+    picked, fastest = pick_bits(flushed, info)
+    for b, x in info.items():
+        ms, turns = timed[f"sector_join_bounds@{b}"][:2]
+        cold, cold_turns = flushed[f"sector_join_bounds@{b}"]
+        bound = moved[f"sector_join_bounds@{b}"] / HBM_RATE * 1e3
+        x.update(join_bounds_ms=ms, join_bounds_ms_turns=turns,
+                 flushed_ms=cold, flushed_ms_turns=cold_turns,
+                 join_bounds_bound_ms=bound, join_bounds_bound_share=bound /
+                 ms)
+    log(f"  {name}: fused join_bounds by table size: " + "; ".join(
+        f"2^{b} rows {x['join_bounds_ms']:.4f} ms (turns "
+        f"{[round(t, 4) for t in x['join_bounds_ms_turns']]}), after an "
+        f"L2 flush {x['flushed_ms']:.4f} ms (turns "
+        f"{[round(t, 4) for t in x['flushed_ms_turns']]}), bound "
+        f"{x['join_bounds_bound_ms']:.4f} ms, "
+        f"{x['join_bounds_bound_share']:.2%}, tier 2 "
+        f"{x['tier2_share']:.4%}, build {min(x['build_s']):.4f} s"
+        for b, x in info.items()))
+    log(f"  {name}: after an L2 flush, fastest 2^{fastest} rows; the "
+        f"smallest within its spread 2^{picked} rows; "
+        f"sector_table.default_bits gives 2^"
+        f"{sector_table.default_bits(info[picked]['index_keys'])}")
+    return dict(by_bits={str(b): x for b, x in info.items()},
+                fastest_bits=fastest, picked_bits=picked)
+
+
+def sync_free(q, q_ok, d_keys, stbl, sbits: int) -> None:
+    """join_bounds through the sector table under
+    torch.cuda.set_sync_debug_mode("error"): a host synchronisation
+    inside it raises."""
+    from kslam_tpu_torch.ops import match
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = match.join_bounds(q, q_ok, d_keys, idx_sector=stbl,
+                                sector_bits=sbits)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    del out
+    log("  sector join_bounds ran under set_sync_debug_mode('error'): no "
+        "host synchronisation")
+
+
 def time_calls(calls: dict, rounds: int = 3):
     """Every call timed with CUDA events in turns (the order, then
     reversed, `rounds` times), and its peak device memory over the call
@@ -1720,18 +1969,21 @@ def time_calls(calls: dict, rounds: int = 3):
     return {k: (sum(v) / len(v), v, peaks[k]) for k, v in times.items()}
 
 
+JOIN_KERNELS = (("sector_join", "sector"), ("bucket_join", "bucket"),
+                ("window_join", "window"))
+
+
 def check_join_calls(calls: dict, q_ok, n_q: int, n_ok: int):
     """Every lookup kernel equal to its plain version on every query;
     join_bounds through each table one launch, equal to
     searchsorted_both on every kept query and to the plain lookup + tier
     2 (join_bounds' plain version) on every query, and the unfused
-    composition equal to it.  Returns {kernel: {max_abs_err,
-    to_tier2}}."""
+    composition equal to it.  Returns ({kernel: {max_abs_err,
+    to_tier2}}, the exact search's bounds)."""
     from kslam_tpu_torch.ops import join_cuda
     want = calls["searchsorted_both"]()
     checks = {}
-    for kernel in ("bucket_join", "window_join"):
-        table = kernel.split("_")[0]
+    for kernel, table in JOIN_KERNELS:
         plain = calls[f"{table}_plain"]()
         got = calls[kernel]()
         torch.cuda.synchronize()
@@ -1759,49 +2011,44 @@ def check_join_calls(calls: dict, q_ok, n_q: int, n_ok: int):
         if err or not exact or any(same) or launched != 1:
             raise AssertionError(f"{kernel}: the kernel differs from its "
                                  f"plain version or the exact search")
-    return checks
+    return checks, want
 
 
 def join_calls(d_keys, q, q_ok, tbl, bbits: int, pstart, bits: int,
-               window: int):
+               window: int, stbl, sbits: int):
     """The timed calls of phase 10 on (keys, queries): the exact search;
-    per table (the bucket table tbl at bbits, the prefix window pstart
-    at bits and window) its lookup kernel, plain version, join_bounds
-    (one launch), the unfused composition (the kernel, then match.tier2:
-    the torch tier 2 of join_bounds' plain version, with torch.nonzero,
-    searchsorted_both and two index_put copies) and the plain lookup +
-    tier 2."""
+    per table (the sector table stbl at sbits, the reference's bucket
+    table tbl at bbits, the prefix window pstart at bits and window) its
+    lookup kernel, plain version, join_bounds (one launch), the unfused
+    composition (the kernel, then match.tier2: the torch tier 2 of
+    join_bounds' plain version, with torch.nonzero, searchsorted_both
+    and two index_put copies) and the plain lookup + tier 2."""
     from kslam_tpu_torch.ops import join, match
-
-    def look():
-        return join.lookup_bucket(tbl, q, bbits)
-
-    def plain():
-        return join.lookup_bucket_plain(tbl, q, bbits)
-
-    def wlook():
-        return join.lookup_prefix_window(d_keys, pstart, q, bits, window)
-
-    def wplain():
-        return join.lookup_prefix_window_plain(d_keys, pstart, q, bits,
-                                               window)
-
-    return {
-        "searchsorted_both": lambda: join.searchsorted_both(d_keys, q),
-        "bucket_join": look, "bucket_plain": plain,
-        "bucket_join_bounds": lambda: match.join_bounds(
-            q, q_ok, d_keys, idx_bucket=tbl, bucket_bits=bbits),
-        "bucket_composition": lambda: match.tier2(*look(), q, q_ok, d_keys),
-        "bucket_plain_bounds": lambda: match.tier2(*plain(), q, q_ok,
-                                                   d_keys),
-        "window_join": wlook, "window_plain": wplain,
-        "window_join_bounds": lambda: match.join_bounds(
-            q, q_ok, d_keys, idx_pstart=pstart, prefix_bits=bits,
-            window=window),
-        "window_composition": lambda: match.tier2(*wlook(), q, q_ok,
-                                                  d_keys),
-        "window_plain_bounds": lambda: match.tier2(*wplain(), q, q_ok,
-                                                   d_keys)}
+    lookups = {
+        "sector": (lambda: join.lookup_sector(stbl, q, sbits),
+                   lambda: join.lookup_sector_plain(stbl, q, sbits),
+                   dict(idx_sector=stbl, sector_bits=sbits)),
+        "bucket": (lambda: join.lookup_bucket(tbl, q, bbits),
+                   lambda: join.lookup_bucket_plain(tbl, q, bbits),
+                   dict(idx_bucket=tbl, bucket_bits=bbits)),
+        "window": (lambda: join.lookup_prefix_window(d_keys, pstart, q,
+                                                     bits, window),
+                   lambda: join.lookup_prefix_window_plain(
+                       d_keys, pstart, q, bits, window),
+                   dict(idx_pstart=pstart, prefix_bits=bits,
+                        window=window))}
+    calls = {"searchsorted_both": lambda: join.searchsorted_both(d_keys, q)}
+    for kernel, table in JOIN_KERNELS:
+        look, plain, kw = lookups[table]
+        calls.update({
+            kernel: look, f"{table}_plain": plain,
+            f"{kernel}_bounds": lambda kw=kw: match.join_bounds(
+                q, q_ok, d_keys, **kw),
+            f"{table}_composition": lambda look=look: match.tier2(
+                *look(), q, q_ok, d_keys),
+            f"{table}_plain_bounds": lambda plain=plain: match.tier2(
+                *plain(), q, q_ok, d_keys)})
+    return calls
 
 
 def report_join_times(timed: dict, moved: dict, per_query: dict,
@@ -1844,33 +2091,113 @@ def report_join_times(timed: dict, moved: dict, per_query: dict,
     return result
 
 
+def join_tables_on_card(dev, kidx, keys):
+    """The tables phase 10 joins through, on the card: the keys; the
+    reference's bucket table, built on the host (not cached) and copied;
+    the sector table at default_bits built from the keys on the card and
+    compared bit for bit with the one the CPU builds from the same keys.
+    Returns (keys, bucket table, its bits, sector table, its bits, the
+    numbers)."""
+    from kslam_tpu_torch.db import sector_table
+    m = len(kidx)
+    kidx.cache_dir = None
+    t0 = time.perf_counter()
+    tbl, bbits = kidx.bucket_table()
+    host_s = time.perf_counter() - t0
+    d_keys = torch.as_tensor(keys).to(dev)
+    d_tbl = torch.from_numpy(np.array(tbl)).to(dev)
+    del tbl
+    sbits = sector_table.default_bits(m)
+    stbl, secs = build_seconds(d_keys, m, sbits)
+    t0 = time.perf_counter()
+    cpu = sector_table.build(torch.as_tensor(keys), m, sbits)
+    cpu_s = time.perf_counter() - t0
+    same = torch.equal(cpu, stbl.cpu())
+    del cpu
+    log(f"  reference bucket table 2^{bbits} rows built on the host in "
+        f"{host_s:.4f} s (not on any CLI path); sector table 2^{sbits} rows "
+        f"({int(stbl.nbytes)} B) built on the card in "
+        f"{[round(x, 4) for x in secs]} s, on the CPU in {cpu_s:.4f} s; "
+        f"equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("the sector table built on the card differs "
+                             "from the CPU's")
+    return d_keys, d_tbl, bbits, stbl, sbits, dict(
+        bucket_host_build_s=host_s, sector_card_build_s=secs,
+        sector_cpu_build_s=cpu_s, sector_bits=sbits,
+        sector_table_bytes=int(stbl.nbytes))
+
+
+def join_all(d_keys, q, q_ok, d_tbl, bbits, d_pstart, bits, window, stbl,
+             sbits, m, n_q, n_ok, name: str, extra_bits=()):
+    """Phase 10's checks and timings on one index: every table's calls
+    (join_calls) checked and timed in turns beside the sector table's
+    join_bounds at each size of sweep_bits; the bytes bounds; the rule's
+    pick.  Returns the JSON-able numbers."""
+    calls = join_calls(d_keys, q, q_ok, d_tbl, bbits, d_pstart, bits,
+                       window, stbl, sbits)
+    checks, exact = check_join_calls(calls, q_ok, n_q, n_ok)
+    sync_free(q, q_ok, d_keys, stbl, sbits)
+    tables, info, sweep_calls, sweep_moved = sector_sweep(
+        q, q_ok, d_keys, m, sweep_bits(m, extra_bits), exact)
+    del exact
+    for x in info.values():
+        x["index_keys"] = m
+    moved, per_query, tier2 = join_bytes(q, q_ok, d_keys, d_tbl, bbits,
+                                         d_pstart, bits, window)
+    by, per_q, t2, _ = sector_bytes(q, q_ok, d_keys, stbl, sbits)
+    moved.update(sector_join=by["lookup"], sector_join_bounds=by[
+        "join_bounds"], **sweep_moved)
+    per_query["sector_join"] = per_q
+    tier2["sector"] = t2
+    for kernel, table in JOIN_KERNELS:
+        if tier2[table] != checks[kernel]["to_tier2"]:
+            raise AssertionError(f"{kernel}: {tier2[table]} tier-2 queries "
+                                 f"in the bound, "
+                                 f"{checks[kernel]['to_tier2']} in the run")
+    calls.update(sweep_calls)
+    timed = time_calls(calls)
+    result = report_join_times(timed, moved, per_query, checks)
+    result["sector_sizes"] = sweep_report(timed, info, moved, sweep_calls,
+                                          name)
+    del tables, calls, sweep_calls
+    result.update(
+        queries=n_q, kept=n_ok, index_keys=m, bucket_bits=bbits,
+        sector_bits=sbits, prefix_bits=bits, window=window,
+        tier2_share={kernel: c["to_tier2"] / max(n_ok, 1)
+                     for kernel, c in checks.items()},
+        table_bytes={"sector": int(stbl.nbytes), "bucket": int(d_tbl.nbytes),
+                     "prefix_window": int(d_pstart.nbytes)})
+    return result
+
+
 def phase_join(ctx, tmp: str, dev, seed: int):
     """The join's kernels on phase 5's DB and the k-mers of all its reads
-    at once: bucket_join (lookup_bucket on the card) and window_join
-    (lookup_prefix_window) against their plain versions on
-    every query (lo, hi, uncovered); match.join_bounds through each (one
-    launch, tier 2 inside) against the exact search (searchsorted_both,
-    the library call) on every kept query (q_ok) and against the plain
-    lookup + tier 2 and the unfused composition on every query; every call
-    timed with CUDA events in turns: ms, peak device memory over the
-    call, the bytes bound and share (and the two-row bound), and tier
-    2's share of kept queries.  Then the repeat-rich case
-    (join_repeats) and one --no-prefix-rows CLI run on the card
-    (window_join on the path), byte-identical to phase 5's.  Returns the
-    JSON-able numbers."""
+    at once: sector_join (lookup_sector on the card; the main path's),
+    bucket_join (lookup_bucket on the reference's table) and window_join
+    (lookup_prefix_window) against their plain versions on every query
+    (lo, hi, uncovered); match.join_bounds through each (one launch,
+    tier 2 inside) against the exact search (searchsorted_both, the
+    library call) on every kept query (q_ok) and against the plain
+    lookup + tier 2 and the unfused composition on every query; the
+    sector table built on the card, equal bit for bit to the CPU's, and
+    at 2^25, 2^26 and 2^27 rows; every call timed with CUDA events in
+    turns: ms, peak device memory over the call, the bytes bound and
+    share (and the two-row bound), and tier 2's share of kept queries.
+    Then the repeat-rich case (join_repeats) and one --no-prefix-rows
+    CLI run on the card (window_join on the path), byte-identical to
+    phase 5's.  Returns the JSON-able numbers."""
     from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
     from kslam_tpu_torch.io.fastq import stream_read_batches
     from kslam_tpu_torch.ops import encode, kmers, sw_cuda
     from kslam_tpu_torch.utils import metrics
     kidx = KmerIndex.load(ctx["db"])
     keys, _, pstart, bits, window = join_columns(kidx)
-    tbl, bbits = kidx.bucket_table()
     m = len(kidx)
-    del kidx
-    d_keys = torch.as_tensor(keys).to(dev)
-    d_tbl = torch.from_numpy(np.array(tbl)).to(dev)
+    d_keys, d_tbl, bbits, stbl, sbits, built = join_tables_on_card(
+        dev, kidx, keys)
     d_pstart = torch.as_tensor(pstart).to(dev)
-    del tbl, keys
+    del kidx, keys
     n_pairs = len(ctx["g"])
     batch = next(stream_read_batches(ctx["r1"], ctx["r2"], n_pairs,
                                      pad_len=160))
@@ -1884,34 +2211,19 @@ def phase_join(ctx, tmp: str, dev, seed: int):
     n_q, n_ok = q.shape[0], int(q_ok.sum())
     del bases, km, valid
     log(f"  index {m} keys (padded {d_keys.shape[0]}), prefix table "
-        f"{bits} bits, window {window}; bucket table {bbits} bits; "
-        f"{batch.num_reads} reads at once: {n_q} query positions, {n_ok} "
-        f"kept (valid, not the zero k-mer)")
-
-    calls = join_calls(d_keys, q, q_ok, d_tbl, bbits, d_pstart, bits,
-                       window)
-    checks = check_join_calls(calls, q_ok, n_q, n_ok)
-    moved, per_query, tier2 = join_bytes(q, q_ok, d_keys, d_tbl, bbits,
-                                         d_pstart, bits, window)
-    for kernel, table in (("bucket_join", "bucket"),
-                          ("window_join", "window")):
-        if tier2[table] != checks[kernel]["to_tier2"]:
-            raise AssertionError(f"{kernel}: {tier2[table]} tier-2 queries "
-                                 f"in the bound, "
-                                 f"{checks[kernel]['to_tier2']} in the run")
-    timed = time_calls(calls)
-    result = report_join_times(timed, moved, per_query, checks)
-    result.update(queries=n_q, kept=n_ok, index_keys=m, bucket_bits=bbits,
-                  prefix_bits=bits, window=window,
-                  table_bytes={"bucket": int(d_tbl.nbytes),
-                               "prefix_window": int(d_pstart.nbytes)})
+        f"{bits} bits, window {window}; bucket table {bbits} bits; sector "
+        f"table {sbits} bits; {batch.num_reads} reads at once: {n_q} query "
+        f"positions, {n_ok} kept (valid, not the zero k-mer)")
+    result = join_all(d_keys, q, q_ok, d_tbl, bbits, d_pstart, bits,
+                      window, stbl, sbits, m, n_q, n_ok, "uniform")
+    result["table_build"] = built
     # the tables and queries go before the next index and the CLI run,
     # whose peaks are their own
-    del calls, d_tbl, d_pstart, d_keys, q, q_ok, lengths
+    del d_tbl, d_pstart, d_keys, stbl, q, q_ok, lengths
     result["repeat_rich"] = join_repeats(dev, seed)
 
     # --no-prefix-rows on the card: the prefix window and tier 2 on the
-    # CLI path, no bucket table
+    # CLI path, no sector table
     metrics.reset()
     torch.cuda.reset_peak_memory_stats()
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
@@ -1928,10 +2240,11 @@ def phase_join(ctx, tmp: str, dev, seed: int):
                                                          sam=False)
     seed = stages.get("phase_a_seed", {}).get("seconds", 0.0)
     log(f"  --no-prefix-rows CLI run: wall {wall:.4f} s, phase_a_seed "
-        f"{seed:.4f} s (phase 5, bucket join: "
+        f"{seed:.4f} s (phase 5, sector join: "
         f"{ctx['stages'].get('phase_a_seed', {}).get('seconds', 0.0):.4f}"
         f" s), peak device memory {peak} B (phase 5: {ctx['peak']} B); "
         f"XML, _PerRead, _abbreviated byte-identical to phase 5: {same}")
+    load_line("--no-prefix-rows run", stages, peak)
     log(f"  stages: {json.dumps(stages)}")
     if not same:
         raise AssertionError("the --no-prefix-rows run differs from "
@@ -1939,7 +2252,7 @@ def phase_join(ctx, tmp: str, dev, seed: int):
     check_fused("the --no-prefix-rows path", launches, fused)
     result["no_prefix_rows_cli"] = dict(wall_s=wall, phase_a_seed_s=seed,
                                         peak_bytes=peak)
-    result["table_build"] = ctx["table"]
+    result["phase5_load"] = ctx["load"]
     return result
 
 
@@ -1948,15 +2261,15 @@ def join_repeats(dev, seed: int, n_genomes: int = 96,
     """The join on a repeat-rich index: eval/realistic genomes (n_genomes
     x bp_each bp, with shared rRNA operons, IS-element families,
     low-complexity tracts and a shared plasmid), indexed by the port's
-    KmerIndex.build at the reference's stride (>= 1e7 keys), its bucket
-    table and prefix window built on the host and put on the card with
-    the keys; the queries are the k-mers of n_reads 150 bp reads copied
-    from those genomes on the card.  At least 1% of the kept queries
-    must go to tier 2 with the bucket table.  join_bounds through each
-    table (one launch) must equal searchsorted_both on every kept query
-    and the plain lookup + tier 2 on every query; join_bounds, the
-    unfused composition, the lookups and the exact search are timed in turns.
-    Returns the JSON-able numbers."""
+    KmerIndex.build at the reference's stride (>= 1e7 keys), the
+    reference's bucket table and the prefix window built on the host and
+    put on the card with the keys, the sector table built on the card
+    (equal to the CPU's); the queries are the k-mers of n_reads 150 bp
+    reads copied from those genomes on the card.  At least 1% of the
+    kept queries must go to tier 2 with the bucket table.  The same
+    checks and timings as phase 10's uniform index (join_all), the
+    sector table also at 2^25-2^27 rows.  Returns the JSON-able
+    numbers."""
     from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
     from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
     from kslam_tpu_torch.eval import realistic
@@ -1968,16 +2281,15 @@ def join_repeats(dev, seed: int, n_genomes: int = 96,
     kidx = KmerIndex.build(GenbankIndex([
         GenbankEntry(bases=s.tobytes().decode()) for s in seqs]))
     keys, _, pstart, bits, window = join_columns(kidx)
-    tbl, bbits = kidx.bucket_table()
     m = len(kidx)
     build_s = time.perf_counter() - t0
     if m < 10**7:
         raise AssertionError(f"the repeat-rich index holds {m} keys, "
                              f"under 1e7")
-    d_keys = torch.as_tensor(keys).to(dev)
-    d_tbl = torch.from_numpy(tbl).to(dev)
+    d_keys, d_tbl, bbits, stbl, sbits, built = join_tables_on_card(
+        dev, kidx, keys)
     d_pstart = torch.as_tensor(pstart).to(dev)
-    del kidx, keys, tbl
+    del kidx, keys
     rng = np.random.default_rng(seed + 8)
     lens = np.array([len(s) for s in seqs])
     first = np.concatenate([[0], np.cumsum(lens)[:-1]])
@@ -1997,39 +2309,35 @@ def join_repeats(dev, seed: int, n_genomes: int = 96,
     log(f"  repeat-rich index: {n_genomes} realistic genomes x {bp_each} "
         f"bp + plasmids, {m} keys (padded {d_keys.shape[0]}), prefix "
         f"table {bits} bits, window {window}; bucket table {bbits} bits; "
-        f"built in {build_s:.1f} s; {n_reads} reads copied from the "
-        f"genomes: {n_q} query positions, {n_ok} kept")
-    calls = join_calls(d_keys, q, q_ok, d_tbl, bbits, d_pstart, bits,
-                       window)
-    checks = check_join_calls(calls, q_ok, n_q, n_ok)
-    share = checks["bucket_join"]["to_tier2"] / n_ok
+        f"sector table {sbits} bits; built in {build_s:.1f} s; {n_reads} "
+        f"reads copied from the genomes: {n_q} query positions, {n_ok} "
+        f"kept")
+    result = join_all(d_keys, q, q_ok, d_tbl, bbits, d_pstart, bits,
+                      window, stbl, sbits, m, n_q, n_ok, "repeat-rich",
+                      extra_bits=(25, 26, 27))
+    share = result["tier2_share"]["bucket_join"]
     if share < 0.01:
         raise AssertionError(f"repeat-rich: {share:.4%} of kept queries to "
                              f"tier 2 with the bucket table, under 1%")
-    moved, per_query, _ = join_bytes(q, q_ok, d_keys, d_tbl, bbits,
-                                     d_pstart, bits, window)
-    timed = time_calls(calls)
-    result = report_join_times(timed, moved, per_query, checks)
-    result.update(queries=n_q, kept=n_ok, index_keys=m, bucket_bits=bbits,
-                  prefix_bits=bits, window=window, build_s=build_s,
-                  n_genomes=n_genomes, bp_each=bp_each, reads=n_reads,
-                  tier2_share={k: c["to_tier2"] / n_ok
-                               for k, c in checks.items()})
+    result.update(build_s=build_s, table_build=built, n_genomes=n_genomes,
+                  bp_each=bp_each, reads=n_reads)
     return result
 
 
 def join_kernel_entries(joins: dict):
     """The kernels line's entries of the join kernels from phase 10's
-    `joins`: launches on each one's own path (bucket_join on the main
-    path, window_join with --no-prefix-rows; a join_bounds call is one
-    launch) and on every path (JOIN_PATHS); the lookup's time, plain
-    version's, bytes bound (window_join also the two-row bound);
-    join_bounds' time (tier 2 in the launch) beside the unfused
-    composition, the plain lookup + tier 2 and their peaks; the
-    repeat-rich case's; and the exact search's time (library_ms)."""
+    `joins`: launches on each one's own path (sector_join on the main
+    path, bucket_join on none, window_join with --no-prefix-rows; a
+    join_bounds call is one launch) and on every path (JOIN_PATHS); the
+    lookup's time, plain version's, bytes bound (window_join also the
+    two-row bound); join_bounds' time (tier 2 in the launch) beside the
+    unfused composition, the plain lookup + tier 2 and their peaks; the
+    repeat-rich case's; the sector table's sizes; and the exact search's
+    time (library_ms)."""
     entries = []
     rich = joins["repeat_rich"]
     for kernel, main_path, line in (
+            ("sector_join", "device_pipeline", 146),
             ("bucket_join", "device_pipeline", 146),
             ("window_join", "no_prefix_rows", 244)):
         table = kernel.split("_")[0]
@@ -2038,7 +2346,7 @@ def join_kernel_entries(joins: dict):
             "name": kernel, "route": "cuda",
             "source": "kslam_tpu_torch/csrc/join.cu",
             "replaces": f"kslam_tpu/ops/join.py:{line}",
-            "launches": JOIN_PATHS[main_path][kernel],
+            "launches": JOIN_PATHS[main_path].get(kernel, 0),
             "launches_by_path": {p: c[kernel] for p, c in JOIN_PATHS.items()
                                  if kernel in c},
             "max_abs_err": j["max_abs_err"], "ms": j["ms"],
@@ -2065,6 +2373,11 @@ def join_kernel_entries(joins: dict):
         if kernel == "window_join":
             entry.update(rows_bound_ms=j["rows_bound_ms"],
                          rows_bound_share=j["rows_bound_share"])
+        if kernel == "sector_join":
+            entry.update(table_bits=joins["sector_bits"],
+                         table_build=joins["table_build"],
+                         sizes=joins["sector_sizes"],
+                         repeat_rich_sizes=rich["sector_sizes"])
         entries.append(entry)
     return entries
 
@@ -2089,6 +2402,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
+    record_load_peaks()
     smi = nvidia_smi_line()
     log(f"phase 1 device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}")

@@ -1,5 +1,5 @@
-// The k-mer join's two table lookups for Hopper: bucket_join and
-// window_join.  Each has two modes.  As a lookup it returns, for every
+// The k-mer join's table lookups for Hopper: sector_join, bucket_join
+// and window_join.  Each has two modes.  As a lookup it returns, for every
 // query key, (lo int64, hi int64, uncovered int32) exactly as the plain
 // versions in ops/join.py do.  With tier 2 (ops/match.join_bounds on the
 // card) it also takes q_ok and returns only (lo, hi): every kept query
@@ -9,6 +9,15 @@
 //
 // What they compute.  The reference package's join is XLA ops, not a
 // Pallas kernel: on the TPU XLA fuses each lookup into a few passes.
+// * sector_join: the port's stand-in for kslam_tpu/ops/join.py:146-191
+//   (lookup_bucket) and the join of every single-device path.  The same
+//   CDF map reaches a row of the sector table (db/sector_table.py, int32
+//   [2^bits, 8], one 32 B sector a row): w0 start, w1 t_base (u32),
+//   w2..w5 four low-32 words, w6 the 12-bit t-deltas of slots 0 and 1,
+//   w7 those of slots 2 and 3, the count (3 bits at 24) and the escape
+//   bit (27).  A covered row's count is at most 4 and lo, hi come from
+//   its slot words as below; an escaped row holds its run's length in
+//   w2: lo = hi = start, uncovered = w2.
 // * bucket_join: kslam_tpu/ops/join.py:146-191 (lookup_bucket).  A key's
 //   word is mapped to a row of the bucket table (KmerIndex.bucket_table,
 //   int32 [2^bits, 16]) by the CDF map t = word >> 32,
@@ -48,8 +57,17 @@
 //   for the all-ones query every key is <= q, so hi = n_keys, as
 //   torch.searchsorted(right=True) over the padded keys gives.
 //
-// What bounds both on the H100: bytes, and the latency of dependent
+// What bounds them on the H100: bytes, and the latency of dependent
 // random loads.  There is no arithmetic to speak of.
+// * sector_join: one thread per query (grid-stride loop).  Per query its
+//   8 B key, one 32 B row and the outputs: the row is two independent
+//   16 B read-only loads (ld.global.nc.v4) of one sector, as the table
+//   is 32 B aligned (the wrapper checks).  The bucket table's row took
+//   two sectors for eight slots, of which ~1.5 were in use (1e8 keys
+//   over 2^26 rows); four slots cover a row unless it holds five keys
+//   or more, and those queries (a few %, PERF.md) go to tier 2 from the
+//   same sector.  A table of 2^26 rows is 2 GiB, not 4, which halves the
+//   TLB and DRAM-page reach the random rows cost.
 // * bucket_join: one thread per query (grid-stride loop).  Per query
 //   its 8 B key, one 64 B row (two 32 B sectors) and the outputs.  The
 //   row is four independent 16 B read-only loads (ld.global.nc.v4), so
@@ -71,7 +89,8 @@
 // Random 64 B rows over a table of up to 4 GiB cost TLB and DRAM page
 // misses that the bytes bound does not count.
 //
-// Limits (checked by the wrapper, ops/join_cuda.py): bits in 1..32;
+// Limits (checked by the wrapper, ops/join_cuda.py): bits in 1..32 (the
+// sector table 32 B aligned);
 // prefix_bits in 1..31; w a power of two in 2..4096 (a covered run is at
 // most 2w keys, scanned in full) with the keys' length a multiple of w
 // and >= 2w; the table 64 B aligned.  A run is read only inside the
@@ -90,6 +109,9 @@ constexpr unsigned long long kAllOnes = ~0ull;
 constexpr int kEscape = 1 << 30;
 constexpr int kSlots = 8;          // KmerIndex.BUCKET_SLOTS
 constexpr int kDeltaBits = 12;     // KmerIndex.BUCKET_DELTA_BITS
+constexpr int kSectorSlots = 4;    // sector_table.SLOTS
+constexpr int kCountShift = 24;    // sector_table.COUNT_SHIFT
+constexpr int kEscapeShift = 27;   // sector_table.ESCAPE_SHIFT
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWindow = 4096;
 
@@ -126,6 +148,71 @@ __device__ __forceinline__ void exact_bounds(const long long* keys,
   hi = word == kAllOnes ? n_keys : search<true>(keys, lo, b, word);
 }
 
+// The slot word of a covered row: ((t_base + delta) << 32) | low.
+__device__ __forceinline__ unsigned long long slot_word(unsigned int t_base,
+                                                        int deltas, int s,
+                                                        int low) {
+  // deltas is int32: an arithmetic shift, then the mask
+  const unsigned int delta = static_cast<unsigned int>(
+      (deltas >> (kDeltaBits * (s % 2))) & ((1 << kDeltaBits) - 1));
+  return (static_cast<unsigned long long>(t_base + delta) << 32) |
+         static_cast<unsigned int>(low);
+}
+
+// The CDF map: v = 2t - floor(t^2 / 2^32) <= 2^32, 2^32 only at
+// t = 2^32 - 1, which the clamp puts in the last row.
+__device__ __forceinline__ unsigned long long row_of(unsigned long long word,
+                                                     int bits) {
+  const unsigned int t = static_cast<unsigned int>(word >> 32);
+  const unsigned long long v = 2ull * t - __umulhi(t, t);
+  return min(v >> (32 - bits), (1ull << bits) - 1);
+}
+
+template <bool kTier2>
+__global__ void __launch_bounds__(kMaxThreads)
+    sector_join_kernel(const long long* __restrict__ queries,
+                       const int4* __restrict__ tbl, long long n, int bits,
+                       const long long* __restrict__ keys, long long n_keys,
+                       const unsigned char* __restrict__ q_ok,
+                       long long* __restrict__ lo_out,
+                       long long* __restrict__ hi_out,
+                       int* __restrict__ unc_out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const unsigned long long word = word_of(__ldg(queries + i));
+    const int4* r = tbl + row_of(word, bits) * 2;
+    // one sector: a = w0..w3, b = w4..w7
+    const int4 a = __ldg(r), b = __ldg(r + 1);
+    const bool escaped = (b.w >> kEscapeShift) & 1;
+    const int cnt = (b.w >> kCountShift) & 7;
+    const unsigned int t_base = static_cast<unsigned int>(a.y);
+    const int lows[kSectorSlots] = {a.z, a.w, b.x, b.y};
+    const int deltas[kSectorSlots / 2] = {b.z, b.w};
+    int lt = 0, eq = 0;
+#pragma unroll
+    for (int s = 0; s < kSectorSlots; ++s) {
+      const unsigned long long slot =
+          slot_word(t_base, deltas[s / 2], s, lows[s]);
+      const bool in_run = s < cnt;
+      lt += in_run && slot < word;
+      eq += in_run && slot == word;
+    }
+    long long lo = static_cast<long long>(a.x) + (escaped ? 0 : lt);
+    long long hi = lo + (escaped ? 0 : eq);
+    if (kTier2) {
+      if (escaped && a.z > 0 && q_ok[i])
+        exact_bounds(keys, n_keys, a.x, static_cast<long long>(a.x) + a.z,
+                     word, lo, hi);
+    } else {
+      unc_out[i] = escaped ? a.z : 0;
+    }
+    lo_out[i] = lo;
+    hi_out[i] = hi;
+  }
+}
+
 template <bool kTier2>
 __global__ void __launch_bounds__(kMaxThreads)
     bucket_join_kernel(const long long* __restrict__ queries,
@@ -135,18 +222,12 @@ __global__ void __launch_bounds__(kMaxThreads)
                        long long* __restrict__ lo_out,
                        long long* __restrict__ hi_out,
                        int* __restrict__ unc_out) {
-  const unsigned long long last_row = (1ull << bits) - 1;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n; i += stride) {
     const unsigned long long word = word_of(__ldg(queries + i));
-    const unsigned int t = static_cast<unsigned int>(word >> 32);
-    // v = 2t - floor(t^2 / 2^32) <= 2^32: 2^32 only at t = 2^32 - 1,
-    // which the clamp puts in the last row
-    const unsigned long long v = 2ull * t - __umulhi(t, t);
-    const unsigned long long row = min(v >> (32 - bits), last_row);
-    const int4* r = tbl + row * 4;
+    const int4* r = tbl + row_of(word, bits) * 4;
     const int4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2),
                d = __ldg(r + 3);
     // a = c0..c3, b = c4..c7, c = c8..c11, d = c12..c15
@@ -157,13 +238,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     int lt = 0, eq = 0;
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
-      // the delta word is int32: an arithmetic shift, then the mask
-      const unsigned int delta = static_cast<unsigned int>(
-          (deltas[s / 2] >> (kDeltaBits * (s % 2))) &
-          ((1 << kDeltaBits) - 1));
       const unsigned long long slot =
-          (static_cast<unsigned long long>(t_base + delta) << 32) |
-          static_cast<unsigned int>(lows[s]);
+          slot_word(t_base, deltas[s / 2], s, lows[s]);
       const bool in_run = s < cnt;
       lt += in_run && slot < word;
       eq += in_run && slot == word;
@@ -244,6 +320,32 @@ bool launch_ok(int threads, int blocks) {
 // caller's current device as it was, and returns cudaGetLastError() of
 // the launch (0 on success; n <= 0 launches nothing).  The grid
 // (threads, blocks) comes from ops/join_cuda.py:launch_config.
+
+// tbl: int32 [2^bits, 8], 32 B aligned.
+extern "C" int kslam_sector_join(const void* queries, const void* tbl,
+                                 const void* keys, long long n_keys,
+                                 const void* q_ok, void* lo, void* hi,
+                                 void* uncovered, long long n, int bits,
+                                 int threads, int blocks, int device,
+                                 void* stream) {
+  const kslam::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  if (n <= 0) return 0;
+  const bool tier2 = q_ok != nullptr;
+  if (bits < 1 || bits > 32 || !launch_ok(threads, blocks) ||
+      (tier2 ? keys == nullptr || n_keys < 1 : uncovered == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(tbl) % 32 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  auto* kernel =
+      tier2 ? &sector_join_kernel<true> : &sector_join_kernel<false>;
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(queries), static_cast<const int4*>(tbl),
+      n, bits, static_cast<const long long*>(keys), n_keys,
+      static_cast<const unsigned char*>(q_ok), static_cast<long long*>(lo),
+      static_cast<long long*>(hi), static_cast<int*>(uncovered));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // tbl: int32 [2^bits, 16], 64 B aligned.
 extern "C" int kslam_bucket_join(const void* queries, const void* tbl,

@@ -1,5 +1,6 @@
 """Index and query words that reach every branch of the join's lookups
-(ops/join.py: the bucket table and the prefix window), for the tests of
+(ops/join.py: the sector table, the bucket table and the prefix
+window), for the tests of
 their kernels (csrc/join.cu) and chip_smoke.py: one copy of the data,
 made from a seeded numpy Generator.  Words are uint64, sorted where they
 form an index; ops/kmers.keys_from_words_np makes them keys.
@@ -49,6 +50,41 @@ def bucket_index_words(rng, n_random: int = 5000, bits: int = 21):
     over = np.uint64((2**32 - 5000) << 32) | np.uint64(7)
     words = np.concatenate([rand, rand | np.uint64(2**63), *groups,
                             np.full(300, rand[100]), [over], EDGES])
+    return np.sort(words)
+
+
+def sector_index_words(rng, n_random: int = 5000, bits: int = 21):
+    """Sorted index words whose sector table (db/sector_table.py) at
+    `bits` has rows of every count 0..6 and rows that escape both ways:
+    random words (both halves of the word space); for each k in 1..6 a
+    row of k words whose t lie up to 2 apart (5 and 6 escape by count);
+    a row of four words whose last t-delta is 2^12 - 1 (covered) and one
+    of two words 2^12 apart (escapes by delta); a run of 300 equal words;
+    and the edge words (t = 2^32 - 1: the CDF map's clamp into the last
+    row).  The planted rows hold no random word."""
+    rand = rng.integers(0, 2**63, n_random, dtype=np.uint64)
+    rand = np.concatenate([rand, rand | np.uint64(2**63)])
+    taken = set(bucket_of_words(np.concatenate([rand, EDGES]),
+                                bits).tolist())
+
+    def planted(ts):
+        """The words of t values ts in one free row (a fresh base t per
+        try)."""
+        for _ in range(10000):
+            base = rng.integers(3 << 30, (1 << 32) - (1 << 24),
+                                dtype=np.uint64)
+            t = base + ts.astype(np.uint64)
+            rows = bucket_of_words(t << np.uint64(32), bits)
+            if rows[0] == rows[-1] and int(rows[0]) not in taken:
+                taken.add(int(rows[0]))
+                return (t << np.uint64(32)) | \
+                    rng.integers(0, 2**32, len(t), dtype=np.uint64)
+        raise ValueError(f"no free row at {bits} bits")
+
+    groups = [planted(np.arange(k) // 2) for k in range(1, 7)]
+    groups.append(planted(np.array([0, 1, 7, (1 << 12) - 1])))
+    groups.append(planted(np.array([0, 1 << 12])))
+    words = np.concatenate([rand, *groups, np.full(300, rand[100]), EDGES])
     return np.sort(words)
 
 

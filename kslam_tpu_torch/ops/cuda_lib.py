@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels as one shared library.
 
 Every kslam_tpu_torch/csrc/*.cu (sw_forward.cu: the SW kernels; join.cu:
-the join's two lookups) is compiled for sm_90a by its own nvcc process,
+the join's three lookups) is compiled for sm_90a by its own nvcc process,
 all started together, and the objects are linked into one shared
 library with a plain C interface, loaded with ctypes.  The build runs at
 first use, once per hash of the flags and the sources (the *.cuh
@@ -30,6 +30,8 @@ _ENTRY_POINTS = {
     "kslam_sw_forward": [_VP] * 4 + [_CI] * 14 + [_VP],
     "kslam_sw_align": [_VP] * 4 + [_CI] * 14 + [_VP],
     "kslam_bucket_join": [_VP] * 3 + [_CLL] + [_VP] * 4 + [_CLL]
+    + [_CI] * 4 + [_VP],
+    "kslam_sector_join": [_VP] * 3 + [_CLL] + [_VP] * 4 + [_CLL]
     + [_CI] * 4 + [_VP],
     "kslam_window_join": [_VP, _CLL] + [_VP] * 6 + [_CLL] + [_CI] * 5
     + [_VP],

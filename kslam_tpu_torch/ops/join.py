@@ -10,8 +10,11 @@ window), lo == hi == the run's start and the run's length in
 `uncovered`; ops/match.expand_seeds resolves those queries with the
 exact search (tier 2).
 
+  * lookup_sector: one 32 B row of the sector table per query
+    (db/sector_table.py; the port's table, built on the keys' device:
+    match.join_bounds' table on every single-device path),
   * lookup_bucket: one [Q, 16] int32 row of KmerIndex.bucket_table per
-    query,
+    query (the reference's table; no path joins with it),
   * lookup_prefix_window: two pstart entries and one [2 * window] row
     (two aligned rows) of the sentinel-padded index per query
     (KmerIndex.prefix_table),
@@ -28,15 +31,17 @@ so it is not carried over.
 
 The unsigned 64-bit arithmetic of the reference runs here on int64:
 right shifts are masked (they are arithmetic on int64), u32 lanes of the
-int32 table are read as `& 0xFFFFFFFF`, and the CDF bucket map's
-t * t (t < 2^32) is split into 16-bit halves so its floor is exact.
+int32 table are read as `& 0xFFFFFFFF`, and the CDF map's t * t
+(t < 2^32; sector_table.row_of, both tables' map) is split into 16-bit
+halves so its floor is exact.
 
-lookup_bucket and lookup_prefix_window check their operands
-(ops/join_cuda.py) and run a CPU tensor through their plain versions,
-lookup_bucket_plain and lookup_prefix_window_plain, and a CUDA tensor
-through the hand-written kernels of csrc/join.cu (bucket_join,
-window_join; join_cuda.JOIN_LAUNCHES counts them); a CUDA tensor never
-falls back, and any other device raises.  The plain versions run over
+lookup_sector, lookup_bucket and lookup_prefix_window check their
+operands (ops/join_cuda.py) and run a CPU tensor through their plain
+versions, lookup_sector_plain, lookup_bucket_plain and
+lookup_prefix_window_plain, and a CUDA tensor through the hand-written
+kernels of csrc/join.cu (sector_join, bucket_join, window_join;
+join_cuda.JOIN_LAUNCHES counts them); a CUDA tensor never falls back,
+and any other device raises.  The plain versions run over
 query slices, so the row gathers' temporaries stay bounded at any query
 count (torch materialises what XLA fuses).
 """
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import torch
 
+from ..db import sector_table
 from ..db.kmer_index import KmerIndex
 from . import join_cuda
 from .kmers import FLIP
@@ -52,7 +58,8 @@ from .kmers import FLIP
 ESCAPE = 1 << 30          # a bucket row's count flag: not answered here
 U32 = 0xFFFFFFFF
 # queries per slice: the bucket join's [slice, 16] int32 gather is
-# 256 MiB at 2^22, and each [slice, 8] int64 slot temporary as much
+# 256 MiB at 2^22, and each [slice, 8] int64 slot temporary as much (the
+# sector join's half of that)
 SLICE_QUERIES = 1 << 22
 # the window joins' [slice, 2w] int64 gather is capped at this many
 # elements, 256 MiB
@@ -77,20 +84,6 @@ def searchsorted_both(sorted_keys, queries):
             torch.searchsorted(sorted_keys, queries, right=True))
 
 
-def _bucket_of(queries, bits: int):
-    """The bucket table row of each key: the CDF map of
-    KmerIndex.bucket_table, t = word >> 32, v = 2t - floor(t^2 / 2^32),
-    row = min(v >> (32 - bits), 2^bits - 1)."""
-    word = queries ^ FLIP
-    t = (word >> 32) & U32
-    th, tl = t >> 16, t & 0xFFFF
-    # floor(t^2 / 2^32) with t = th * 2^16 + tl: th^2 plus the floor of
-    # the low part, which is < 2^50
-    sq = th * th + ((((th * tl) << 17) + tl * tl) >> 32)
-    v = (t << 1) - sq
-    return torch.clamp(v >> (32 - bits), max=(1 << bits) - 1)
-
-
 def lookup_bucket(tbl, queries, bits: int):
     """(lo, hi, uncovered) via the bucket table (lookup_bucket_plain):
     the plain version for CPU tensors, the bucket_join kernel for CUDA
@@ -113,7 +106,7 @@ def lookup_bucket_plain(tbl, queries, bits: int):
     shifts = (slots % 2) * delta_bits
 
     def one(q):
-        r = tbl[_bucket_of(q, bits)]             # [Q, 16] int32
+        r = tbl[sector_table.row_of(q, bits)]    # [Q, 16] int32
         start = r[:, 0].to(torch.int64)
         cntf = r[:, 1]
         covered = cntf < ESCAPE
@@ -132,6 +125,49 @@ def lookup_bucket_plain(tbl, queries, bits: int):
         hi = lo + torch.where(covered,
                               ((slot_keys == qq) & in_run).sum(1), 0)
         return lo, hi, torch.where(covered, 0, cnt)
+
+    return _sliced(one, queries, SLICE_QUERIES)
+
+
+def lookup_sector(tbl, queries, bits: int):
+    """(lo, hi, uncovered) via the sector table (lookup_sector_plain):
+    the plain version for CPU tensors, the sector_join kernel for CUDA
+    ones."""
+    if queries.device.type == "cpu":
+        join_cuda.check_sector(tbl, queries, bits)
+        return lookup_sector_plain(tbl, queries, bits)
+    return join_cuda.sector_join(tbl, queries, bits)
+
+
+def lookup_sector_plain(tbl, queries, bits: int):
+    """(lo, hi, uncovered) via the sector table (db/sector_table.py:
+    int32 [2^bits, 8] rows of w0 start, w1 t_base (u32), w2..w5 four
+    low-32 words, w6..w7 four 12-bit t-deltas, the count and the escape
+    bit).  Queries of escaped rows get lo == hi == start and the run's
+    length (w2) in `uncovered`.  The sector_join kernel's arithmetic;
+    lo and hi are int64, uncovered int32."""
+    st = sector_table
+    slots = torch.arange(st.SLOTS, device=queries.device)
+    shifts = (slots % 2) * st.DELTA_BITS
+
+    def one(q):
+        r = tbl[st.row_of(q, bits)]              # [Q, 8] int32
+        start = r[:, 0].to(torch.int64)
+        info = r[:, 7]
+        escaped = ((info >> st.ESCAPE_SHIFT) & 1) == 1
+        cnt = (info >> st.COUNT_SHIFT) & 7
+        t = (r[:, 1:2].to(torch.int64) & U32) + \
+            ((r[:, 6 + slots // 2].to(torch.int64) >> shifts)
+             & ((1 << st.DELTA_BITS) - 1))
+        slot_keys = (((t & U32) << 32) |
+                     (r[:, 2:2 + st.SLOTS].to(torch.int64) & U32)) ^ FLIP
+        in_run = slots[None, :] < cnt[:, None]
+        qq = q[:, None]
+        lo = start + torch.where(escaped, 0,
+                                 ((slot_keys < qq) & in_run).sum(1))
+        hi = lo + torch.where(escaped, 0,
+                              ((slot_keys == qq) & in_run).sum(1))
+        return lo, hi, torch.where(escaped, r[:, 2], 0)
 
     return _sliced(one, queries, SLICE_QUERIES)
 

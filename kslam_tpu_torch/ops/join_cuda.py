@@ -1,13 +1,14 @@
 """Launch glue of the join's hand-written kernels (csrc/join.cu):
-bucket_join (the counterpart of kslam_tpu/ops/join.py:146-191,
-lookup_bucket) and window_join (kslam_tpu/ops/join.py:244-288,
-lookup_prefix_window).  ops/join.py's public lookups check their
-operands here, send a CPU tensor to the plain version and a CUDA tensor
-to these launches, which check them and raise for any other device; a
-CUDA tensor never falls back.
+sector_join (the port's one-sector table, db/sector_table.py, standing
+for kslam_tpu/ops/join.py:146-191, lookup_bucket), bucket_join (the
+same lookup on the reference's 64 B bucket table) and window_join
+(kslam_tpu/ops/join.py:244-288, lookup_prefix_window).  ops/join.py's
+public lookups check their operands here, send a CPU tensor to the
+plain version and a CUDA tensor to these launches, which check them and
+raise for any other device; a CUDA tensor never falls back.
 
-Each kernel has two modes.  bucket_join / window_join are the lookups:
-(lo, hi, uncovered).  bucket_join_bounds / window_join_bounds are
+Each kernel has two modes.  sector_join / bucket_join / window_join are
+the lookups: (lo, hi, uncovered).  The *_join_bounds functions are
 ops/match.join_bounds on the card: the same launch also resolves every
 kept (q_ok) query its table leaves uncovered with an exact search of the
 run the table gives, so it returns only (lo, hi), exact wherever q_ok,
@@ -28,13 +29,14 @@ import torch
 
 from .cuda_lib import load_library
 
-JOIN_LAUNCHES = {"bucket_join": 0, "window_join": 0}
+JOIN_LAUNCHES = {"sector_join": 0, "bucket_join": 0, "window_join": 0}
 
 SLOTS = 8             # slots of a bucket row (KmerIndex.BUCKET_SLOTS)
 DELTA_BITS = 12       # bits of a slot's t-delta (KmerIndex.BUCKET_DELTA_BITS)
 THREADS = 256         # threads per block (kMaxThreads in join.cu)
 MAX_BLOCKS = 1 << 20  # the grid-stride loops cover more queries
 TABLE_ALIGN = 64      # a bucket row is two 32 B sectors
+SECTOR_ALIGN = 32     # a sector row is one
 MAX_WINDOW = 4096     # a covered run (<= 2w keys) is scanned in full
 
 
@@ -78,6 +80,20 @@ def check_bucket(tbl, queries, bits: int, aligned: bool = False) -> None:
     _check_device(queries, tbl)
     if aligned:
         _check_aligned("tbl", tbl, TABLE_ALIGN)
+
+
+def check_sector(tbl, queries, bits: int, aligned: bool = False) -> None:
+    """Raises ValueError unless tbl is a contiguous int32 [2^bits, 8]
+    sector table and queries contiguous int64 keys on tbl's device;
+    aligned: the table's rows are also 32 B aligned, one sector each, as
+    the kernel reads them."""
+    if not 1 <= bits <= 32:
+        raise ValueError(f"sector bits {bits} not in 1..32")
+    _check("tbl", tbl, torch.int32, shape=(1 << bits, 8))
+    _check("queries", queries, torch.int64)
+    _check_device(queries, tbl)
+    if aligned:
+        _check_aligned("tbl", tbl, SECTOR_ALIGN)
 
 
 def check_window(index_kmers, pstart, queries, prefix_bits: int,
@@ -136,9 +152,15 @@ def _raise_on(err: int, name: str, n: int) -> None:
                            f"({n} queries)")
 
 
-def _bucket_launch(tbl, queries, bits: int, index_kmers=None, q_ok=None):
+def _row_launch(name: str, tbl, queries, bits: int, index_kmers=None,
+                q_ok=None):
+    """One launch of the sector_join or bucket_join kernel (their C
+    entry points take the same arguments)."""
     index, stream = _device_and_stream(queries)
-    check_bucket(tbl, queries, bits, aligned=True)
+    if name == "sector_join":
+        check_sector(tbl, queries, bits, aligned=True)
+    else:
+        check_bucket(tbl, queries, bits, aligned=True)
     if q_ok is not None:
         check_tier2(index_kmers, q_ok, queries)
     out = _outputs(queries, uncovered=q_ok is None)
@@ -146,7 +168,7 @@ def _bucket_launch(tbl, queries, bits: int, index_kmers=None, q_ok=None):
     if n == 0:
         return out
     threads, blocks = launch_config(n)
-    err = load_library().kslam_bucket_join(
+    err = getattr(load_library(), f"kslam_{name}")(
         queries.data_ptr(), tbl.data_ptr(),
         None if q_ok is None else index_kmers.data_ptr(),
         0 if q_ok is None else index_kmers.shape[0],
@@ -154,8 +176,8 @@ def _bucket_launch(tbl, queries, bits: int, index_kmers=None, q_ok=None):
         out[0].data_ptr(), out[1].data_ptr(),
         None if q_ok is not None else out[2].data_ptr(),
         n, bits, threads, blocks, index, stream)
-    _raise_on(err, "bucket_join", n)
-    JOIN_LAUNCHES["bucket_join"] += 1
+    _raise_on(err, name, n)
+    JOIN_LAUNCHES[name] += 1
     return out
 
 
@@ -181,10 +203,25 @@ def _window_launch(index_kmers, pstart, queries, prefix_bits: int,
     return out
 
 
+def sector_join(tbl, queries, bits: int):
+    """(lo, hi, uncovered) of lookup_sector from one launch of the
+    sector_join kernel; CUDA tensors only."""
+    return _row_launch("sector_join", tbl, queries, bits)
+
+
+def sector_join_bounds(tbl, queries, bits: int, index_kmers, q_ok):
+    """(lo, hi) of match.join_bounds with the sector table from one
+    launch of the sector_join kernel, tier 2 included: index_kmers are
+    the sorted, sentinel-padded keys the table was built from; CUDA
+    tensors only."""
+    return _row_launch("sector_join", tbl, queries, bits, index_kmers,
+                       q_ok)
+
+
 def bucket_join(tbl, queries, bits: int):
     """(lo, hi, uncovered) of lookup_bucket from one launch of the
     bucket_join kernel; CUDA tensors only."""
-    return _bucket_launch(tbl, queries, bits)
+    return _row_launch("bucket_join", tbl, queries, bits)
 
 
 def bucket_join_bounds(tbl, queries, bits: int, index_kmers, q_ok):
@@ -192,7 +229,8 @@ def bucket_join_bounds(tbl, queries, bits: int, index_kmers, q_ok):
     launch of the bucket_join kernel, tier 2 included: index_kmers are
     the sorted, sentinel-padded keys the table was built from; CUDA
     tensors only."""
-    return _bucket_launch(tbl, queries, bits, index_kmers, q_ok)
+    return _row_launch("bucket_join", tbl, queries, bits, index_kmers,
+                       q_ok)
 
 
 def window_join(index_kmers, pstart, queries, prefix_bits: int,

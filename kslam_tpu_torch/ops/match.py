@@ -4,9 +4,10 @@ Replaces the reference's union-sort + pileup scan (SLAM.h:63-66,
 Overlap.h:153-295) with:
 
   1. a join of every read k-mer key against the sorted index keys
-     (ops/join.py: the bucket table, the prefix window or the exact
-     search, in the reference package's order), whose escaped queries
-     an exact tier 2 resolves, so the bounds are exact for any pileup,
+     (ops/join.py: the port's sector table, then the bucket table, the
+     prefix window or the exact search, in the reference package's
+     order), whose escaped queries an exact tier 2 resolves, so the
+     bounds are exact for any pileup,
   2. pair expansion (read k-mer x index slot), sized exactly by default:
      torch shapes are dynamic, so the pair count is read once and nothing
      is ever dropped to a static capacity,
@@ -92,10 +93,14 @@ def _emit_pairs(lo, clipped, q_pack, idx_pack, n_index: int,
 
 def join_bounds(q_kmer, q_ok, index_kmers, idx_pstart=None,
                 prefix_bits: int = 0, window: int = 0, idx_rows=None,
-                idx_pstart2=None, idx_bucket=None, bucket_bits: int = 0):
+                idx_pstart2=None, idx_bucket=None, bucket_bits: int = 0,
+                idx_sector=None, sector_bits: int = 0):
     """(lo, hi) int64 insertion bounds of the keys q_kmer [Q] in the
-    sorted index keys, exact wherever q_ok.  Backends, in the reference
-    package's order (kslam_tpu/ops/match.py expand_seeds):
+    sorted index keys, exact wherever q_ok.  Backends: the port's
+    sector table, then the reference package's order
+    (kslam_tpu/ops/match.py expand_seeds):
+      * idx_sector/sector_bits: the one-sector table
+        (db/sector_table.py, align.DeviceDB's),
       * idx_bucket/bucket_bits: the one-gather bucket table,
       * idx_rows/idx_pstart2: the overlapping-rows prefix layout,
       * idx_pstart/prefix_bits/window: the prefix window,
@@ -105,12 +110,19 @@ def join_bounds(q_kmer, q_ok, index_kmers, idx_pstart=None,
     so their pairs expand with all others (the reference appends them as
     a block; finish_overlaps' sort makes the order moot).
 
-    Off the CPU the bucket table and the prefix window are one launch of
-    their kernel with tier 2 inside it (join_cuda.bucket_join_bounds,
+    Off the CPU each table is one launch of its kernel with tier 2
+    inside it (join_cuda.sector_join_bounds, bucket_join_bounds,
     window_join_bounds): the same (lo, hi) on every query, with no
     compaction and no host synchronisation."""
     on_card = q_kmer.device.type != "cpu"
-    if idx_bucket is not None and bucket_bits:
+    if idx_sector is not None and sector_bits:
+        if on_card:
+            return join_cuda.sector_join_bounds(idx_sector, q_kmer,
+                                                sector_bits, index_kmers,
+                                                q_ok)
+        lo, hi, uncovered = join.lookup_sector(idx_sector, q_kmer,
+                                               sector_bits)
+    elif idx_bucket is not None and bucket_bits:
         if on_card:
             return join_cuda.bucket_join_bounds(idx_bucket, q_kmer,
                                                 bucket_bits, index_kmers,
@@ -148,7 +160,8 @@ def expand_seeds(read_kmer, read_off, read_rc, read_valid, read_lengths,
                  capacity: Optional[int] = None, idx_pstart=None,
                  prefix_bits: int = 0, window: int = 0,
                  idx_rows=None, idx_pstart2=None,
-                 idx_bucket=None, bucket_bits: int = 0):
+                 idx_bucket=None, bucket_bits: int = 0,
+                 idx_sector=None, sector_bits: int = 0):
     """Join + pair expansion (the first half of match_overlaps).
 
     read_kmer: int64 keys [N, W]; index_kmers: sorted int64 keys [M'],
@@ -180,7 +193,8 @@ def expand_seeds(read_kmer, read_off, read_rc, read_valid, read_lengths,
     lo, hi = join_bounds(q_kmer, q_ok, index_kmers, idx_pstart=idx_pstart,
                          prefix_bits=prefix_bits, window=window,
                          idx_rows=idx_rows, idx_pstart2=idx_pstart2,
-                         idx_bucket=idx_bucket, bucket_bits=bucket_bits)
+                         idx_bucket=idx_bucket, bucket_bits=bucket_bits,
+                         idx_sector=idx_sector, sector_bits=sector_bits)
     matches = torch.where(q_ok, hi - lo, 0)
     clipped = matches if max_matches is None else \
         torch.clamp(matches, max=max_matches)
@@ -228,8 +242,9 @@ def match_overlaps(read_kmer, read_off, read_rc, read_valid, read_lengths,
                    max_matches: Optional[int] = None,
                    capacity: Optional[int] = None, **join_tables) -> Overlaps:
     """Full seeding stage: expand_seeds + finish_overlaps.  join_tables:
-    expand_seeds' table arguments (idx_bucket, bucket_bits, idx_pstart,
-    prefix_bits, window, idx_rows, idx_pstart2).
+    expand_seeds' table arguments (idx_sector, sector_bits, idx_bucket,
+    bucket_bits, idx_pstart, prefix_bits, window, idx_rows,
+    idx_pstart2).
     Returns Overlaps sorted by (read, entry, relPos, rc), deduped."""
     seeds = expand_seeds(read_kmer, read_off, read_rc, read_valid,
                          read_lengths, index_kmers, idx_pack,

@@ -5,9 +5,10 @@ Counterpart of kslam_tpu/pipeline/align.py.  DeviceDB holds what the
 join and the SW window builders read: the sorted k-mer keys
 (ops/kmers.py key encoding) and the per-slot entry|offset|rc word, both
 sentinel-padded, the join's tables (the prefix table and, unless
---no-prefix-rows, the bucket table), the genome codes as [G/32, 32]
-rows, the entry offsets and, for the host-object path only
-(--device-pipeline off), the flat [G] genome codes.  The join's tier 2
+--no-prefix-rows, the sector table, built on the device from the keys
+at load: db/sector_table.py), the genome codes as [G/32, 32] rows, the
+entry offsets and, for the host-object path only (--device-pipeline
+off), the flat [G] genome codes.  The join's tier 2
 is exact (ops/match.expand_seeds), so align_batch_to_database needs no
 overflow retry.
 
@@ -27,11 +28,13 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..db import sector_table
 from ..db.genbank import GenbankIndex
 from ..db.kmer_index import KmerIndex, join_columns
 from ..golden import ssw as golden_ssw
 from ..io.fastq import ReadBatch
 from ..ops import encode, kmers, match, sw
+from ..utils import metrics
 from .pairing import AlignedOverlap
 
 
@@ -50,8 +53,8 @@ class DeviceDB:
     pstart: torch.Tensor = None  # int32 [2^bits + 1] prefix table
     prefix_bits: int = 0         # (db/kmer_index.prefix_table);
     prefix_window: int = 0       # 0 bits = exact search
-    bucket: torch.Tensor = None  # int32 [2^b, 16] one-gather join rows
-    bucket_bits: int = 0         # (db/kmer_index.bucket_table)
+    sector: torch.Tensor = None  # int32 [2^b, 8] one-sector join rows
+    sector_bits: int = 0         # (db/sector_table.py)
 
     @classmethod
     def from_index(cls, gindex: GenbankIndex, kidx: KmerIndex,
@@ -60,36 +63,52 @@ class DeviceDB:
         """Tensors on `device` from the host index objects (the same
         GenbankIndex / KmerIndex the reference package loads).
         flat_scodes adds the flat [G] genome copy that only the
-        host-object path's window gather reads.  prefix_rows=False
-        skips the bucket table (64 B per row, 2^21-2^26 rows): the join
-        is then the prefix window on pstart."""
+        host-object path's window gather reads.  The sector table is
+        built on `device` from the keys just copied there
+        (sector_table.build at sector_table.default_bits); nothing of
+        it is read from or written to the DB directory.
+        prefix_rows=False skips it: the join is then the prefix window
+        on pstart.  Three stages time the load: db_load_host (the host
+        columns), db_load_h2d (the copies) and db_load_table (the
+        sector table), each ending in a device synchronisation."""
         dev = torch.device(device)
-        keys, pack, pstart, bits, window = join_columns(kidx)
-        bucket, bucket_bits = None, 0
+        with metrics.stage("db_load_host"):
+            keys, pack, pstart, bits, window = join_columns(kidx)
+            scodes = encode.sw_codes_np(gindex.bases_concat)
+            chunks = sw.genome_chunks_from_scodes(scodes)
+        with metrics.stage("db_load_h2d"):
+            db = cls(
+                kmers=torch.as_tensor(keys).to(dev),
+                idx_pack=torch.as_tensor(pack).to(dev),
+                genome_chunks=torch.as_tensor(chunks).to(dev),
+                entry_offsets=torch.as_tensor(
+                    np.asarray(gindex.entry_offsets, np.int64)).to(dev),
+                genome_scodes=torch.as_tensor(scodes).to(dev)
+                if flat_scodes else None,
+                pstart=None if pstart is None
+                else torch.as_tensor(pstart).to(dev),
+                prefix_bits=bits, prefix_window=window)
+            _sync(dev)
+        del keys, pack, scodes, chunks
         if prefix_rows and len(kidx):
-            tbl, bucket_bits = kidx.bucket_table()
-            # a copy: a cached table is a read-only memory map
-            bucket = torch.from_numpy(np.array(tbl)).to(dev)
-        scodes = encode.sw_codes_np(gindex.bases_concat)
-        chunks = sw.genome_chunks_from_scodes(scodes)
-        return cls(
-            kmers=torch.as_tensor(keys).to(dev),
-            idx_pack=torch.as_tensor(pack).to(dev),
-            genome_chunks=torch.as_tensor(chunks).to(dev),
-            entry_offsets=torch.as_tensor(
-                np.asarray(gindex.entry_offsets, np.int64)).to(dev),
-            genome_scodes=torch.as_tensor(scodes).to(dev)
-            if flat_scodes else None,
-            pstart=None if pstart is None
-            else torch.as_tensor(pstart).to(dev),
-            prefix_bits=bits, prefix_window=window, bucket=bucket,
-            bucket_bits=bucket_bits)
+            with metrics.stage("db_load_table"):
+                db.sector_bits = sector_table.default_bits(len(kidx))
+                db.sector = sector_table.build(db.kmers, len(kidx),
+                                               db.sector_bits)
+                _sync(dev)
+        return db
 
     def join_tables(self) -> dict:
         """The join's table arguments of ops/match.expand_seeds."""
         return dict(idx_pstart=self.pstart, prefix_bits=self.prefix_bits,
-                    window=self.prefix_window, idx_bucket=self.bucket,
-                    bucket_bits=self.bucket_bits)
+                    window=self.prefix_window, idx_sector=self.sector,
+                    sector_bits=self.sector_bits)
+
+
+def _sync(dev) -> None:
+    """Waits for the device's queued work (a stage's end)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def align_batch_to_database(batch: ReadBatch, db: DeviceDB,

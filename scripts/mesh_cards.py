@@ -51,6 +51,7 @@ def main() -> int:
                    f"{torch.cuda.get_device_name(0)}; nvidia-smi: "
                    f"{chip_smoke.nvidia_smi_line()}")
     cuda_lib.load_library()
+    chip_smoke.record_load_peaks()
     if native.get_lib() is None:
         raise AssertionError(f"no native host library: "
                              f"{native.BUILD_REPORT}")
@@ -78,7 +79,7 @@ def main() -> int:
             tmp, ctx["db"], ctx["r1"], ctx["r2"], flags,
             chip_smoke.read_outputs(ref, sam=True), name="mp_cards",
             visible=visible,
-            join_kernel="window_join" if half > 1 else "bucket_join")
+            join_kernel="window_join" if half > 1 else "sector_join")
     chip_smoke.log("mesh_cards: every mesh and two-process run equals its "
                    "single-device run")
     return 0

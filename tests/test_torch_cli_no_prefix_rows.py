@@ -1,9 +1,11 @@
 """kslam_tpu_torch.cli --device cpu against kslam_tpu.cli on a
-repeat-rich database, with the default join (the bucket table and its
-tier 2) and with --no-prefix-rows (the prefix window on pstart and its
-tier 2): the SAM without @PG, the XML, _PerRead and _abbreviated files
-must be byte-identical.  The port runs first and caches the bucket
-table in the DB directory; the reference then reads that cache."""
+repeat-rich database, with the default join (the port's sector table,
+the reference's bucket table, each with its tier 2) and with
+--no-prefix-rows (the prefix window on pstart and its tier 2): the SAM
+without @PG, the XML, _PerRead and _abbreviated files must be
+byte-identical.  The port runs first: it builds its table at load and
+leaves the DB directory as it was; the reference caches its bucket
+table there."""
 
 import os
 
@@ -26,10 +28,17 @@ def realistic(tmp_path_factory):
 def test_join_flags_match_jax(realistic, flags):
     root, db = realistic
     name = "window" if flags else "bucket"
-    t_files, j_files = fx.compare_files(root, db, name, flags, False)
+    before = sorted(os.listdir(db))
+    mode = flags + ["--device-pipeline", "on"]
+    t_files = fx.run_files(fx.tcli.main, root, db, f"{name}_torch",
+                           mode + ["--device", "cpu"], False)
+    # the port's run reads and writes no table cache in the DB directory
+    assert sorted(os.listdir(db)) == before
+    j_files = fx.run_files(fx.jcli.main, root, db, f"{name}_jax", mode,
+                           False)
     assert t_files == j_files
     assert t_files["_PerRead"]
     assert sum(not line.startswith("@") for line in t_files["sam"]) >= 40
-    # --no-prefix-rows (run first) builds no bucket table; the default
-    # caches one
+    # --no-prefix-rows (run first) builds no bucket table; the
+    # reference's default run caches one
     assert os.path.exists(db / "bucket_table.npy") == (not flags)

@@ -3,9 +3,10 @@ kernels against their plain torch versions (the forward kernel and the
 fused forward + reverse kernel: odd shapes, n_valid, every row-count
 instantiation, wide scores, the chunked windows of the device pipeline),
 the host screen on CUDA against the CPU, the join's kernels
-(bucket_join, window_join) against their plain versions and the join's
-three backends (bucket table, prefix window, exact search) against each
-other on CUDA,
+(sector_join, bucket_join, window_join) against their plain versions,
+the sector table built on the card against the CPU's bit for bit, and
+the join's four backends (sector table, bucket table, prefix window,
+exact search) against each other on CUDA,
 the sharded phase A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
 against the CPU, and the CUDA CLI runs (classification and SAM, and
 over four chunks at both chunk-pipeline depths) against the CPU ones.
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from kslam_tpu_torch import cli
+from kslam_tpu_torch.db import sector_table
 from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
 from kslam_tpu_torch.db.host_table import HostTable
 from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
@@ -537,8 +539,9 @@ def _card_join_bounds(q, q_ok, keys, name, **tables):
 @pytest.mark.cuda
 @pytest.mark.parametrize("skewed", [False, True], ids=["random", "skewed"])
 def test_join_backends_agree_on_cuda(cuda_device, skewed):
-    """match.join_bounds through the bucket table and the prefix window
-    gives the (lo, hi) of searchsorted_both on the card, and the CPU's
+    """match.join_bounds through the sector table (built on each device
+    from its keys), the bucket table and the prefix window gives the (lo,
+    hi) of searchsorted_both on the card, and the CPU's
     join_bounds on every query; on the card each is one launch of its
     kernel, tier 2 inside it, with no host synchronisation; skewed keys
     (runs of 300 and 40 equal keys, a dense cluster of one prefix) leave
@@ -565,13 +568,20 @@ def test_join_backends_agree_on_cuda(cuda_device, skewed):
         q = torch.as_tensor(q_np).to(dev)
         q_ok = torch.as_tensor(ok_np).to(dev)
         exact = join.searchsorted_both(k, q)
+        sbits = sector_table.default_bits(len(words))
         tables = {
+            "sector_join": dict(
+                idx_sector=sector_table.build(k, len(words), sbits),
+                sector_bits=sbits),
             "bucket_join": dict(
                 idx_bucket=torch.from_numpy(np.array(tbl)).to(dev),
                 bucket_bits=bbits),
             "window_join": dict(idx_pstart=torch.as_tensor(pstart).to(dev),
                                 prefix_bits=bits, window=window)}
         if skewed:
+            assert int((q_ok & (join.lookup_sector(
+                tables["sector_join"]["idx_sector"], q,
+                sbits)[2] > 0)).sum()) > 0
             assert int((q_ok & (join.lookup_bucket(
                 tables["bucket_join"]["idx_bucket"], q,
                 bbits)[2] > 0)).sum()) > 0
@@ -587,7 +597,7 @@ def test_join_backends_agree_on_cuda(cuda_device, skewed):
                 assert torch.equal(a[q_ok], b_[q_ok]), name
             results[(str(dev), name)] = [x.cpu() for x in got]
         results[(str(dev), "exact")] = [x.cpu() for x in exact]
-    for name in ("bucket_join", "window_join", "exact"):
+    for name in ("sector_join", "bucket_join", "window_join", "exact"):
         for a, b_ in zip(results[("cpu", name)],
                          results[(str(cuda_device), name)]):
             assert torch.equal(a, b_), name
@@ -742,6 +752,9 @@ def test_join_kernels_at_query_counts(cuda_device, n):
     _kernel_vs_plain(join.lookup_bucket, join.lookup_bucket_plain,
                      [torch.from_numpy(tbl), q, bits], cuda_device,
                      "bucket_join")
+    _kernel_vs_plain(join.lookup_sector, join.lookup_sector_plain,
+                     [_sector_of(words, 16), q, 16], cuda_device,
+                     "sector_join")
     _kernel_vs_plain(join.lookup_prefix_window,
                      join.lookup_prefix_window_plain,
                      [torch.as_tensor(kmers.keys_from_words_np(padded)),
@@ -781,8 +794,9 @@ def test_join_kernels_on_several_tables_and_cards(cuda_device):
 
 @pytest.mark.cuda
 def test_join_bounds_with_the_kernels(cuda_device):
-    """match.join_bounds on the card, one launch of each kernel with its
-    tier 2 inside, gives the exact search's (lo, hi) on every kept query
+    """match.join_bounds on the card, one launch of each kernel (the
+    sector table's, the bucket table's, the window's) with its tier 2
+    inside, gives the exact search's (lo, hi) on every kept query
     of a repeat-rich index's reads, and the CPU's join_bounds on every
     query, with no host synchronisation."""
     kidx = _realistic_index()
@@ -802,7 +816,11 @@ def test_join_bounds_with_the_kernels(cuda_device):
         q = torch.as_tensor(q_np).to(dev)
         q_ok = torch.as_tensor(ok_np).to(dev)
         exact = join.searchsorted_both(k, q)
+        sbits = sector_table.default_bits(len(kidx))
         tables = {
+            "sector_join": dict(
+                idx_sector=sector_table.build(k, len(kidx), sbits),
+                sector_bits=sbits),
             "bucket_join": dict(
                 idx_bucket=torch.from_numpy(np.array(tbl)).to(dev),
                 bucket_bits=bbits),
@@ -819,6 +837,123 @@ def test_join_bounds_with_the_kernels(cuda_device):
                 assert torch.equal(torch.where(q_ok, a, 0),
                                    torch.where(q_ok, b_, 0)), name
             out[(str(dev), name)] = [x.cpu() for x in got]
-    for name in ("bucket_join", "window_join"):
+    for name in ("sector_join", "bucket_join", "window_join"):
         for a, b_ in zip(out[("cpu", name)], out[(str(cuda_device), name)]):
             assert torch.equal(a, b_)
+
+
+def _sector_of(words, bits: int, device="cpu"):
+    """The sector table of the sorted index words, built on `device` from
+    their sentinel-padded keys."""
+    keys = torch.as_tensor(kmers.keys_from_words_np(
+        join_cases.sentinel_padded(words, 16))).to(device)
+    return sector_table.build(keys, len(words), bits)
+
+
+def _sector_case(case, rng):
+    """(sorted index words, bits) of a sector-table case: random words at
+    the default bits, the edge words with rows of every count 0..6 and
+    both escapes (2^16 and 2^21 rows), few bits (most queries escape) or
+    a repeat-rich eval/realistic index."""
+    if case == "random":
+        words = np.sort(rng.integers(0, 2**64 - 1, 200_000,
+                                     dtype=np.uint64))
+        return words, sector_table.default_bits(len(words))
+    if case == "few_bits":
+        words = np.sort(np.concatenate([
+            rng.integers(0, 2**64 - 1, 50_000, dtype=np.uint64),
+            join_cases.EDGES, np.full(300, join_cases.EDGES[7])]))
+        return words, 12
+    if case == "realistic":
+        words = np.asarray(_realistic_index().kmers)
+        return words, sector_table.default_bits(len(words))
+    bits = int(case[5:])
+    return join_cases.sector_index_words(rng, bits=bits), bits
+
+
+SECTOR_CASES = ["random", "edges16", "edges21", "few_bits", "realistic"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SECTOR_CASES)
+def test_sector_table_on_card_equals_cpu(cuda_device, case):
+    """The sector table built on the card equals the CPU's bit for bit,
+    at the default slices and at odd ones."""
+    rng = np.random.default_rng(97)
+    words, bits = _sector_case(case, rng)
+    cpu = _sector_of(words, bits)
+    card = _sector_of(words, bits, cuda_device)
+    assert card.device.type == "cuda" and card.data_ptr() % 32 == 0
+    assert torch.equal(card.cpu(), cpu)
+    keys = torch.as_tensor(kmers.keys_from_words_np(
+        join_cases.sentinel_padded(words, 16))).to(cuda_device)
+    odd = sector_table.build(keys, len(words), bits, slice_keys=4099,
+                             slice_rows=3001)
+    assert torch.equal(odd.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SECTOR_CASES)
+def test_sector_join_matches_plain(cuda_device, case):
+    """The sector_join kernel gives lookup_sector_plain's (lo, hi,
+    uncovered) on every query (index words, their neighbours, random
+    words, the edge words, the all-ones word)."""
+    rng = np.random.default_rng(101)
+    words, bits = _sector_case(case, rng)
+    q = torch.as_tensor(kmers.keys_from_words_np(
+        join_cases.queries_for(words, rng, 100_000)))
+    lo, hi, unc = _kernel_vs_plain(
+        join.lookup_sector, join.lookup_sector_plain,
+        [_sector_of(words, bits), q, bits], cuda_device, "sector_join")
+    if case != "random":
+        assert (unc > 0).any()
+    if case == "few_bits":
+        assert (unc > 0).mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SECTOR_CASES)
+def test_sector_join_bounds_on_card(cuda_device, case):
+    """match.join_bounds through the sector table on the card equals the
+    CPU's on every query for every q_ok pattern, and the exact search on
+    every kept query; one launch, with no host synchronisation."""
+    rng = np.random.default_rng(103)
+    words, bits = _sector_case(case, rng)
+    keys = torch.as_tensor(kmers.keys_from_words_np(
+        join_cases.sentinel_padded(words, 16)))
+    tbl = _sector_of(words, bits)
+    qw = join_cases.queries_for(words, rng, 50_000)
+    q = torch.as_tensor(kmers.keys_from_words_np(qw))
+    for mask in ("all", "none", "random"):
+        ok = {"all": np.ones(len(qw), bool),
+              "none": np.zeros(len(qw), bool),
+              "random": rng.random(len(qw)) < 0.5}[mask]
+        q_ok = torch.as_tensor(ok)
+        want = match.join_bounds(q, q_ok, keys, idx_sector=tbl,
+                                 sector_bits=bits)
+        got = _card_join_bounds(
+            q.to(cuda_device), q_ok.to(cuda_device), keys.to(cuda_device),
+            "sector_join", idx_sector=tbl.to(cuda_device), sector_bits=bits)
+        exact = join.searchsorted_both(keys, q)
+        kept = q_ok & (q != kmers.keys_from_words_np(
+            np.array([join_cases.ALL_ONES]))[0])
+        for a, b_, c in zip(got, want, exact):
+            assert a.device.type == "cuda" and a.dtype == torch.int64
+            assert torch.equal(a.cpu(), b_), (case, mask)
+            assert torch.equal(a.cpu()[kept], c[kept]), (case, mask)
+
+
+@pytest.mark.cuda
+def test_device_db_sector_table_on_card(cuda_device):
+    """DeviceDB.from_index on the card builds the same sector table as on
+    the CPU, 32 B aligned, from the keys it uploaded."""
+    from kslam_tpu_torch.pipeline import align
+    kidx = _realistic_index()
+    gindex = GenbankIndex([GenbankEntry(bases="ACGT" * 100)])
+    cpu = align.DeviceDB.from_index(gindex, kidx, "cpu")
+    card = align.DeviceDB.from_index(gindex, kidx, cuda_device)
+    assert card.sector_bits == cpu.sector_bits == \
+        sector_table.default_bits(len(kidx))
+    assert card.sector.device.type == "cuda"
+    assert card.sector.data_ptr() % 32 == 0
+    assert torch.equal(card.sector.cpu(), cpu.sector)

@@ -17,8 +17,10 @@ from kslam_tpu.io.fastq import ReadBatch
 from kslam_tpu.ops import lca as jlca
 from kslam_tpu.pipeline import align as jalign, device_path as jdp, \
     pairing as jpairing, run as jrun
+from kslam_tpu_torch.db import sector_table
 from kslam_tpu_torch.ops import encode, kmers, lca
 from kslam_tpu_torch.pipeline import align, device_path, run
+from tests.test_torch_sector_join import sector_from_bucket
 
 torch.set_num_threads(1)
 
@@ -94,11 +96,13 @@ def test_device_db_tensors_equal_jax(setup):
     _eq(tdb.pstart, jdb.pstart)
     assert (tdb.prefix_bits, tdb.prefix_window) == \
         (jdb.prefix_bits, jdb.prefix_window)
-    # the port's DB carries the bucket table; the reference's fixture
-    # (prefix_rows=False) does not
-    tbl, bbits = kidx.bucket_table()
-    assert tdb.bucket_bits == bbits and jdb.bucket is None
-    _eq(tdb.bucket, tbl)
+    # the port's DB carries the sector table, built from its keys: the
+    # table the reference's bucket table at the same bits implies; the
+    # reference's fixture (prefix_rows=False) has no table
+    assert tdb.sector_bits == sector_table.default_bits(m)
+    assert jdb.bucket is None
+    tbl, _ = kidx.bucket_table(bits=tdb.sector_bits)
+    _eq(tdb.sector, sector_from_bucket(np.asarray(tbl)))
     _eq(tdb.genome_chunks, jdb.genome_chunks)
     _eq(tdb.entry_offsets, jdb.entry_offsets)
     assert torch.all(tdb.kmers[1:] >= tdb.kmers[:-1])
@@ -122,7 +126,7 @@ def _phase_a_both(setup, paired, packed):
         jdb.entry_id, jdb.offset, jdb.rc, jdb.genome_chunks,
         jdb.entry_offsets, max_matches=64, capacity=1 << 12,
         sw_batch=1 << 10, chain_iters=32, idx_pack=jdb.idx_pack, **kw, **jx)
-    # the port joins with its bucket table and tier 2, the reference
+    # the port joins with its sector table and tier 2, the reference
     # (prefix_rows=False, no tables passed) with its exact search
     ta = device_path.phase_a(
         torch.as_tensor(x), torch.as_tensor(b.lengths), mid, tdb.kmers,

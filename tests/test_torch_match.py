@@ -179,12 +179,14 @@ def realistic_join():
     return kidx, bases, lengths, jres
 
 
-@pytest.mark.parametrize("backend", ["bucket", "window", "rows", "exact"])
+@pytest.mark.parametrize("backend", ["sector", "bucket", "window", "rows",
+                                     "exact"])
 def test_join_backends_match_jax(realistic_join, backend):
     """Each join backend of the port, with its exact tier 2, gives the
     reference's seeds row for row after finish_overlaps: the sorted
     (read, entry, relPos, rc) of every pair and the kept set.  The pad of
     idx_pack is poisoned, so an emitted pad slot would show."""
+    from kslam_tpu_torch.db import sector_table
     from kslam_tpu_torch.db.kmer_index import join_columns
     from kslam_tpu_torch.ops import join
     kidx, bases, lengths, jres = realistic_join
@@ -197,6 +199,9 @@ def test_join_backends_match_jax(realistic_join, backend):
     tbl, bbits = kidx.bucket_table()
     tables["bucket"] = dict(idx_bucket=torch.from_numpy(tbl),
                             bucket_bits=bbits)
+    sbits = sector_table.default_bits(m)
+    tables["sector"] = dict(
+        idx_sector=sector_table.build(keys_t, m, sbits), sector_bits=sbits)
     rows, p2 = join.build_prefix_rows(keys_t, pstart_t, window)
     tables["rows"] = dict(idx_rows=rows, idx_pstart2=p2, prefix_bits=bits,
                           window=window)
@@ -205,7 +210,10 @@ def test_join_backends_match_jax(realistic_join, backend):
                                      torch.as_tensor(lengths))
     q = tk[0].reshape(-1)
     # the tables leave queries to tier 2 on this index
-    if backend == "bucket":
+    if backend == "sector":
+        assert int((join.lookup_sector(tables["sector"]["idx_sector"], q,
+                                       sbits)[2] > 0).sum()) > 0
+    elif backend == "bucket":
         assert int((join.lookup_bucket(tables["bucket"]["idx_bucket"], q,
                                        bbits)[2] > 0).sum()) > 0
     elif backend == "window":
