@@ -141,6 +141,26 @@ Phases (each prints its own line; any failure exits non-zero):
      at 2^25-2^27 rows.  Then one --no-prefix-rows
      CLI run on cuda (window_join on the path), byte-identical to phase
      5's.  Its numbers are printed as one {"join": ...} line.
+ 11. DB provisioning: a local NCBI mirror (eval/ncbi_mirror, written by
+     spawned processes) of 64 bacterial assemblies built from
+     eval/realistic's pieces (chromosomes over 1-8 Mbp, median ~4 Mbp,
+     one of 10 Mbp; the shared plasmid on every third; ~0.86 genes a kbp;
+     species in 8 genera under Bacteria; ~284 Mbp) and three rows the
+     installer must skip (a replaced assembly, a scaffold, no ftp_path);
+     kslam_tpu_torch.install_db.main(--bacteria) in-process with fetch
+     bound to the mirror, twice: each stage's seconds (taxonomy fetch +
+     extract, genome fetch + gunzip, --parse-taxonomy, the GBFF parse,
+     the index build + save, the total), exactly the complete, latest
+     assemblies fetched, then 0 fetches and the same DB files (an .npz
+     member by member).  The reference's parser (db/genbank) against the
+     linear one (db/gbff) on one-genome GBFFs of 1, 2 and 4 Mbp in turns:
+     equal entries, both times.  Then 32,768 pairs planted from the
+     chromosomes (by length) through the CLI on cuda on the installed
+     DB: stages, db_load's split, reads/min, peak, the sector_join and
+     fused sw_align launches, >= 99% of pairs to their genome's taxid
+     or genus, gene hits in the XML; and the first 512 pairs on cpu and
+     on cuda, byte-identical.  Its numbers are printed as one
+     {"install": ...} line.
 Phase 4 also runs, on cuda, --mesh 2x2 (classification), --mesh 1x4
 --shard-genomes --sam-file, and two processes of --coordinator
 localhost:PORT --num-processes 2 sharing the card; and three chunks of
@@ -151,8 +171,8 @@ CPU run wrote (the two-process SAM compared as one header and its body
 lines sorted).
 The last three lines are the card's name and power limit (nvidia-smi),
 a JSON object describing each kernel (the SW kernels and the three
-join kernels, each with its launches on its paths), and the contract
-object
+join kernels, each with its launches on its paths, phase 11's as
+"installed_db"), and the contract object
 {"ok": true, "device": {...}}.
 """
 
@@ -846,15 +866,17 @@ def write_taxonomy(path: str, taxids) -> None:
 
 
 def plant_pairs(rng, genomes, n_pairs: int, read_len: int = 150,
-                mut_rate: float = 0.01):
-    """Paired reads planted from random genomes: R1 forward at pos, R2
-    the reverse complement at pos + insert - read_len.  Returns
-    (r1 u8 [n, L], r2 u8 [n, L], genome index [n], R1 position [n])."""
+                mut_rate: float = 0.01, weights=None):
+    """Paired reads planted from random genomes (each as likely as the
+    others, or drawn with `weights`): R1 forward at pos, R2 the reverse
+    complement at pos + insert - read_len.  Returns (r1 u8 [n, L], r2
+    u8 [n, L], genome index [n], R1 position [n])."""
     comp = np.zeros(256, np.uint8)
     for a, c in zip(b"ACGT", b"TGCA"):
         comp[a] = c
     bases4 = np.frombuffer(b"ACGT", np.uint8)
-    g = rng.integers(0, len(genomes), n_pairs)
+    g = rng.integers(0, len(genomes), n_pairs) if weights is None else \
+        rng.choice(len(genomes), n_pairs, p=weights)
     at = np.zeros(n_pairs, np.int64)
     r1 = np.empty((n_pairs, read_len), np.uint8)
     r2 = np.empty((n_pairs, read_len), np.uint8)
@@ -944,9 +966,11 @@ def read_outputs(out: str, sam: bool):
 
 
 def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
-                    sam: bool):
+                    sam: bool, path=None):
     """The same CLI run on cpu and on cuda: outputs byte-identical, the
-    kernel launched on cuda only.  Returns the cuda run's files."""
+    kernel launched on cuda only.  path: the name the kernels line lists
+    the run under (default small_<name>).  Returns the cuda run's
+    files."""
     from kslam_tpu_torch.ops import join_cuda, sw_cuda
     outs = {}
     for device in ("cpu", "cuda"):
@@ -965,7 +989,7 @@ def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
         if device == "cuda":
             check_fused(f"{name} cuda", launched, fused)
             check_join(f"{name} cuda", joins, "sector_join",
-                       path=f"small_{name}")
+                       path=path or f"small_{name}")
         elif launched or any(joins.values()):
             raise AssertionError(f"{name}: {launched} SW launches, join "
                                  f"launches {joins} on cpu")
@@ -2382,6 +2406,257 @@ def join_kernel_entries(joins: dict):
     return entries
 
 
+# --- phase 11: DB provisioning ---
+
+INSTALL_ASSEMBLIES = 64        # + 3 rows the installer must skip
+INSTALL_BIG_BP = 10_000_000    # one chromosome above the 1-8 Mbp spread
+INSTALL_GENERA = 8
+INSTALL_PAIRS = 32768
+# the cpu run's pairs: its plain SW takes ~40 ms a pair on these genomes
+# on the card's host, so 4,096 pairs would add ~3 minutes
+INSTALL_CPU_PAIRS = 512
+PARSE_MBP = (1, 2, 4)
+
+
+def timed(fn, timers: dict, name: str):
+    """fn, adding its seconds to timers[name] at every call."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            timers[name] = timers.get(name, 0.0) + time.perf_counter() - t0
+    return run
+
+
+def write_install_mirror(rng, root: str, seed: int):
+    """The local NCBI mirror of phase 11 (eval/ncbi_mirror, written by a
+    pool of spawned processes): INSTALL_ASSEMBLIES complete, latest
+    bacteria (chromosomes at the quantiles of a 4 Mbp-median log-normal
+    within 1-8 Mbp, one of 10 Mbp; the shared plasmid on every third;
+    ~0.86 genes a kbp; species in INSTALL_GENERA genera under Bacteria),
+    and among them a replaced assembly, a scaffold-level one and one
+    without an ftp_path.  Returns (assemblies in the summary's order,
+    each one's write_gbff dicts, taxa)."""
+    import multiprocessing
+    from kslam_tpu_torch.eval import ncbi_mirror as nm
+    n = INSTALL_ASSEMBLIES
+    lengths = nm.spread_lengths(n - 1) + [INSTALL_BIG_BP]
+    order = rng.permutation(n)
+    asms = [nm.Assembly(g, lengths[k], plasmid=g % 3 == 0)
+            for g, k in enumerate(order.tolist())]
+    for at, asm in ((5, nm.Assembly(n, 200_000, version_status="replaced")),
+                    (20, nm.Assembly(n + 1, 200_000,
+                                     assembly_level="Scaffold")),
+                    (40, nm.Assembly(n + 2, 200_000, listed_path=False))):
+        asms.insert(at, asm)
+    taxa = nm.genus_taxa(n + 3, INSTALL_GENERA)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            min(8, os.cpu_count() or 1), mp_context=ctx) as pool:
+        written = nm.write_mirror(root, asms, taxa, seed=seed,
+                                  map_fn=pool.map)
+    return asms, written, taxa
+
+
+def install_twice(mirror: str, db: str, work: str, want):
+    """install_db.main(--db DB --work W --bacteria) with fetch bound to
+    the mirror, twice: the first must fetch the taxdump, the summary and
+    exactly the GBFFs `want` (in order), the second nothing, and both
+    must write the same DB files.  Returns each run's stage seconds and
+    the DB's snapshot."""
+    from kslam_tpu_torch import cli, install_db
+    from kslam_tpu_torch.db import gbff
+    from kslam_tpu_torch.eval import ncbi_mirror as nm
+    fetched = []
+    local = nm.local_fetch(mirror)
+
+    def fetch(url, dest):
+        fetched.append(url)
+        local(url, dest)
+    saved = (install_db.fetch, install_db.download_taxonomy,
+             install_db.download_genomes, cli.main, gbff.index_from_gbff)
+    runs, snapshots = [], []
+    try:
+        for run in range(2):
+            timers = {}
+            fetched.clear()
+            install_db.fetch = fetch
+            install_db.download_taxonomy = timed(
+                saved[1], timers, "taxonomy fetch + extract")
+            install_db.download_genomes = timed(
+                saved[2], timers, "genome fetch + gunzip")
+            cli.main = lambda argv: timed(saved[3], timers, argv[0])(argv)
+            gbff.index_from_gbff = timed(saved[4], timers, "GBFF parse")
+            t0 = time.perf_counter()
+            if install_db.main(["--db", db, "--work", work,
+                                "--bacteria"]) != 0:
+                raise AssertionError("install_db.main failed")
+            total = time.perf_counter() - t0
+            gbffs = [u for u in fetched if u.endswith(".gbff.gz")]
+            sec = {k: timers.get(k, 0.0) for k in (
+                "taxonomy fetch + extract", "genome fetch + gunzip",
+                "--parse-taxonomy", "GBFF parse")}
+            sec["index build + save"] = timers.get("--parse-genbank", 0.0) \
+                - sec["GBFF parse"]
+            sec["total"] = total
+            log(f"  install {run + 1}: {len(fetched)} fetches "
+                f"({len(gbffs)} GBFFs); seconds "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sec.items()))
+            if run == 0 and (gbffs != want or len(fetched) != len(want) + 2):
+                raise AssertionError(f"the install fetched {len(gbffs)} "
+                                     f"GBFFs, not the {len(want)} complete, "
+                                     f"latest assemblies")
+            if run == 1 and fetched:
+                raise AssertionError(f"the second install fetched "
+                                     f"{len(fetched)} files")
+            runs.append(sec)
+            snapshots.append(nm.db_files(db))
+    finally:
+        (install_db.fetch, install_db.download_taxonomy,
+         install_db.download_genomes, cli.main,
+         gbff.index_from_gbff) = saved
+    same = snapshots[0] == snapshots[1]
+    log(f"  second install: 0 fetches, DB files identical to the first's "
+        f"(each file byte for byte, an .npz member by member): {same} "
+        f"({sorted(snapshots[0])})")
+    if not same:
+        raise AssertionError("the second install wrote other DB files")
+    return runs, snapshots[0]
+
+
+def compare_parsers(tmp: str, taxa, seed: int):
+    """db/genbank.index_from_gbff (the reference's parser, quadratic)
+    against db/gbff.index_from_gbff on one-genome GBFFs of PARSE_MBP
+    Mbp, in turns (linear, copy, linear); equal entries required.
+    Returns the seconds by size."""
+    from kslam_tpu_torch.db import gbff, genbank
+    from kslam_tpu_torch.eval import ncbi_mirror as nm
+    out = {}
+    for i, mbp in enumerate(PARSE_MBP):
+        path = os.path.join(tmp, f"parse_{mbp}mbp.gbff")
+        nm.write_gbff(path, nm.spread_assembly(i, mbp * 1_000_000, taxa,
+                                               seed))
+        secs, results = [], []
+        for parse in (gbff.index_from_gbff, genbank.index_from_gbff,
+                      gbff.index_from_gbff):
+            t0 = time.perf_counter()
+            results.append(parse([path]).entries)
+            secs.append(time.perf_counter() - t0)
+        same = results[0] == results[1] == results[2]
+        genes = sum(len(e.genes) for e in results[0])
+        lin = min(secs[0], secs[2])
+        log(f"  parse {mbp} Mbp ({genes} genes): copy {secs[1]:.4f} s, "
+            f"linear {secs[0]:.4f} / {secs[2]:.4f} s, copy/linear "
+            f"{secs[1] / lin:.1f}x; equal entries: {same}")
+        if not same:
+            raise AssertionError(f"the parsers differ at {mbp} Mbp")
+        out[mbp] = {"copy_s": secs[1], "linear_s": [secs[0], secs[2]]}
+        os.remove(path)
+    return out
+
+
+def phase_install(rng, tmp: str, seed: int):
+    """Phase 11: write the mirror, install from it twice, compare the
+    parsers, then classify INSTALL_PAIRS planted pairs on the installed
+    DB on the card, and the first INSTALL_CPU_PAIRS on cpu and cuda.
+    Returns the JSON-able numbers."""
+    from kslam_tpu_torch.ops import sw_cuda
+    from kslam_tpu_torch.utils import metrics
+    t0 = time.perf_counter()
+    mirror = os.path.join(tmp, "ncbi_mirror")
+    asms, written, taxa = write_install_mirror(rng, mirror, seed)
+    mirror_s = time.perf_counter() - t0
+    installed = [(a, d) for a, d in zip(asms, written) if a.installed]
+    genomes = [np.frombuffer(d[0]["seq"].encode(), np.uint8)
+               for _, d in installed]
+    bp = sum(len(e["seq"]) for _, d in installed for e in d)
+    entries = sum(len(d) for _, d in installed)
+    genes = sum(len(e["genes"]) for _, d in installed for e in d)
+    lengths = np.array([len(x) for x in genomes])
+    plasmids = sum(a.plasmid for a, _ in installed)
+    log(f"  mirror: {len(asms)} assemblies ({len(installed)} complete and "
+        f"latest), {bp} bp in {entries} entries ({plasmids} plasmids), "
+        f"{genes} genes ({genes / bp * 1000:.3f} a kbp); chromosomes "
+        f"{lengths.min()}-{lengths.max()} bp, median "
+        f"{int(np.median(lengths))}; written in {mirror_s:.1f} s")
+    db = os.path.join(tmp, "installed_db")
+    runs, files = install_twice(mirror, db, os.path.join(tmp, "install_work"),
+                                [a.gbff_url for a, _ in installed])
+    with np.load(os.path.join(db, "kmer_index.npz")) as z:
+        n_keys = int(z["kmers"].shape[0])
+    meta_genes = files["meta.json"].count(b'"cds_start"')
+    log(f"  installed DB: {bp} bp, {entries} entries, {meta_genes} genes "
+        f"after the parser's dedup, {n_keys} index keys")
+    del files
+    parse = compare_parsers(tmp, taxa, seed)
+
+    # classification on the installed DB, reads drawn by chromosome length
+    r1, r2, g, _ = plant_pairs(rng, genomes, INSTALL_PAIRS,
+                               weights=lengths / lengths.sum())
+    names = [f"i{i}".encode() for i in range(INSTALL_PAIRS)]
+    paths = [os.path.join(tmp, f"install_{x}.fq") for x in
+             ("r1", "r2", "c1", "c2")]
+    write_fastq(paths[0], names, r1)
+    write_fastq(paths[1], names, r2)
+    write_fastq(paths[2], names[:INSTALL_CPU_PAIRS], r1[:INSTALL_CPU_PAIRS])
+    write_fastq(paths[3], names[:INSTALL_CPU_PAIRS], r2[:INSTALL_CPU_PAIRS])
+    del r1, r2
+    metrics.reset()
+    torch.cuda.reset_peak_memory_stats()
+    sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
+    zero_join_launches()
+    out = os.path.join(tmp, "installed_out")
+    wall = run_cli(db, out, paths[0], paths[1], "cuda")
+    launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
+    joins = join_launches()
+    check_join("the installed DB", joins, "sector_join")
+    JOIN_PATHS["installed_db"] = joins
+    peak = torch.cuda.max_memory_allocated()
+    stages = metrics.summary()
+    load = load_line("installed DB", stages, peak)
+    species = [100 + installed[k][0].g for k in g.tolist()]
+    per_read = dict(line.split("\t") for line in
+                    open(out + "_PerRead").read().strip().split("\n"))
+    got = [per_read.get(f"i{i}") for i in range(INSTALL_PAIRS)]
+    at_species = sum(x == str(t) for x, t in zip(got, species))
+    at_genus = sum(x == str(taxa[t][0]) for x, t in zip(got, species))
+    with open(out) as fh:
+        xml = fh.read()
+    gene_rows = re.findall(r'<gene [^>]*numReads="(\d+)"', xml)
+    n_reads = 2 * INSTALL_PAIRS
+    loop_s = wall - stages.get("db_load", {}).get("seconds", 0.0)
+    frac = (at_species + at_genus) / INSTALL_PAIRS
+    log(f"  classification: {n_reads} reads, CLI wall {wall:.2f} s "
+        f"({n_reads / wall * 60:.0f} reads/min), without the DB load "
+        f"{loop_s:.2f} s ({n_reads / loop_s * 60:.0f} reads/min); peak "
+        f"device memory {peak} B")
+    log(f"  stages: {json.dumps(stages)}")
+    log(f"  pairs to their genome's taxid {at_species}/{INSTALL_PAIRS} "
+        f"({at_species / INSTALL_PAIRS:.4%}), to its genus {at_genus}; "
+        f"either {frac:.4%}; gene hits in the XML: {len(gene_rows)} genes, "
+        f"{sum(int(x) for x in gene_rows)} reads")
+    if frac < 0.99 or not gene_rows:
+        raise AssertionError(f"installed DB: {frac:.4%} of pairs to their "
+                             f"taxid or genus, {len(gene_rows)} gene hits")
+    check_fused("the installed DB", launches, fused)
+
+    # the card against the cpu on the first pairs
+    t0 = time.perf_counter()
+    compare_devices(tmp, db, f"installed_db_{INSTALL_CPU_PAIRS}", paths[2],
+                    paths[3], [], sam=False,
+                    path=f"installed_db_{INSTALL_CPU_PAIRS}_pairs")
+    cmp_s = time.perf_counter() - t0
+    return dict(assemblies=len(asms), installed=len(installed), bp=bp,
+                entries=entries, genes=meta_genes, index_keys=n_keys,
+                mirror_s=mirror_s, install=runs, parse=parse,
+                reads=n_reads, wall_s=wall, loop_s=loop_s, load=load,
+                species_share=at_species / INSTALL_PAIRS,
+                genus_share=at_genus / INSTALL_PAIRS,
+                gene_hits=len(gene_rows), sw_launches=fused,
+                join_launches=joins, cpu_compare_s=cmp_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2472,6 +2747,13 @@ def main() -> int:
             f"{2 * args.pairs} reads' k-mers at once")
         joins = phase_join(ctx, tmp, dev, args.seed)
         log(f"  join: {json.dumps({'join': joins})}")
+        log(f"phase 11 DB provisioning: a local NCBI mirror of "
+            f"{INSTALL_ASSEMBLIES} bacterial assemblies, "
+            f"kslam_tpu_torch.install_db twice, the parsers at "
+            f"{PARSE_MBP} Mbp, {INSTALL_PAIRS} pairs on the installed DB")
+        installed = phase_install(np.random.default_rng(args.seed + 11),
+                                  tmp, args.seed)
+        log(f"  install: {json.dumps({'install': installed})}")
 
     flat, chunked = align["flat"], align["chunked"]
     kernels = {"kernels": [{
@@ -2492,6 +2774,7 @@ def main() -> int:
                              "flat_window": align_launches,
                              "mesh_2x2_shard_genomes": mesh_fused,
                              "chunk_pipeline": pipe_fused,
+                             "installed_db": installed["sw_launches"],
                              **{f"small_{k}": v
                                 for k, v in small_launches.items()}},
         "rectangle_cells_main_path": cells,

@@ -138,7 +138,9 @@ STREAM_BUILD_BP = 2_000_000_000  # above ~2 Gbp the in-RAM k-mer column
 
 
 def build_database(paths, out_dir: str, from_fasta: bool) -> None:
-    from .db.genbank import index_from_fasta, index_from_gbff
+    # the linear-time GBFF parser (db/gbff.py) in place of the copy's
+    from .db.gbff import index_from_gbff
+    from .db.genbank import index_from_fasta
     from .db.kmer_index import KmerIndex
     index = index_from_fasta(paths) if from_fasta else index_from_gbff(paths)
     log(f"Parsed {len(index.entries)} entries")

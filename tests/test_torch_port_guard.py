@@ -1,5 +1,7 @@
 """Guards of the kslam_tpu_torch port: it imports where JAX is absent,
-its copies of the reference package's host modules have not drifted,
+its copies of the reference package's host modules (and of
+scripts/install_db.py and golden_ref/parity.py's writers) have not
+drifted,
 its CLI fails on a malformed --mesh as the reference's does, and its
 native-library loader says why it did not build."""
 
@@ -29,8 +31,10 @@ def test_port_imports_without_jax():
     """Every port module imports in a process where `import jax` and
     `import kslam_tpu` fail."""
     mods = _port_modules()
-    assert {"kslam_tpu_torch.ops.sw_cuda", "kslam_tpu_torch.ops.join"} \
-        <= set(mods) and len(mods) >= 20
+    assert {"kslam_tpu_torch.ops.sw_cuda", "kslam_tpu_torch.ops.join",
+            "kslam_tpu_torch.install_db", "kslam_tpu_torch.db.gbff",
+            "kslam_tpu_torch.eval.ncbi_mirror"} <= set(mods) \
+        and len(mods) >= 20
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -52,7 +56,9 @@ def test_port_imports_without_jax():
 
 
 # (port module, reference module, names that differ on purpose, names
-#  the port leaves out, compare only these names (None: all))
+#  the port leaves out, compare only these names (None: all)); a
+#  reference module is one of kslam_tpu/, or a file from the repo's root
+#  where it starts with "/"
 COPIES = [
     ("config", "config", (), (), None),
     ("utils/logging", "utils/logging", (), (), None),
@@ -85,7 +91,9 @@ COPIES = [
      ("_revcomp_u64", "sequence_kmers_np", "kmer_string")),
     ("pipeline/device_path", "pipeline/device_path", (), (),
      ("rescore_sorted_host",)),
-    ("cli", "cli", (), (), ("build_database", "STREAM_BUILD_BP")),
+    # build_database parses GBFF with the linear-time db/gbff.py
+    ("cli", "cli", ("build_database",), (),
+     ("build_database", "STREAM_BUILD_BP")),
     ("parallel/dist", "parallel/dist", (), (),
      ("shard_database", "shard_genomes")),
     ("parallel/multihost", "parallel/multihost", (), (),
@@ -93,6 +101,11 @@ COPIES = [
     ("eval/realistic", "eval/realistic", (), (), None),
     ("eval/comparison", "eval/comparison", (), (), None),
     ("golden/overlaps", "golden/overlaps", (), (), None),
+    # build_database builds with kslam_tpu_torch.cli
+    ("install_db", "/scripts/install_db", ("build_database",), (), None),
+    ("eval/ncbi_mirror", "/golden_ref/parity", (), (),
+     ("_GBFF_TEMPLATE", "_GENE_TEMPLATE", "_origin_block", "write_gbff",
+      "write_taxdump")),
 ]
 
 
@@ -126,7 +139,8 @@ def _items(path):
 def test_copied_host_code_has_not_drifted(port, ref, changed, dropped,
                                           only):
     mine = _items(os.path.join(ROOT, "kslam_tpu_torch", port + ".py"))
-    theirs = _items(os.path.join(ROOT, "kslam_tpu", ref + ".py"))
+    theirs = _items(ROOT + ref + ".py" if ref.startswith("/") else
+                    os.path.join(ROOT, "kslam_tpu", ref + ".py"))
     names = only if only is not None else sorted(set(mine) | set(theirs))
     for name in names:
         if name in changed:
