@@ -73,9 +73,14 @@ Phases (each prints its own line; any failure exits non-zero):
      the CLI on cuda; >= 99% of the pairs must get their genome's taxid.
      Every CLI run here and below builds the sector table on the card at
      load (DeviceDB.from_index) and joins with it and its exact tier 2;
-     phases 5-9 print db_load split into the host columns, the H2D
-     copies, the table's build and the rest, and the peak device memory
-     at the load's end and over the run.
+     phases 5-9 print db_load split into the three files (taxonomy,
+     genomes, k-mer index), the host arrays, the staged H2D copies, the
+     columns derived on the card (db/device_columns.py), the table's
+     build and the rest, and the peak device memory at the load's end
+     and over the run.  The columns the run's load derived on the card
+     (keys, idx_pack, pstart, bits, window, genome rows) must equal, bit
+     for bit, the host versions (join_columns, sw_codes_np,
+     genome_chunks_from_scodes) run once on the index the run loaded.
      Every SW launch must be a fused sw_align launch (4 at the default
      size, one per batch of 32,768 candidates); prints the launches and
      rectangle cells on this path and the cells per second over the
@@ -89,10 +94,13 @@ Phases (each prints its own line; any failure exits non-zero):
   8. real-size mesh: phase 5's DB and reads with --mesh 2x2
      --shard-genomes on cuda (every cell on the visible cards, cycled);
      the XML, _PerRead and _abbreviated files must be byte-identical to
-     phase 5's.  Prints the stage seconds (shard_placement: sharding and
-     placing the DB), the peak memory of every device, the mesh cells on
-     each device, and the kernel's launches and rectangle cells on this
-     path; every launch fused, 4 at the default size.
+     phase 5's.  Prints the stage seconds (shard_placement: the shards
+     and genome slices derived on the card), the peak memory of every
+     device, the mesh cells on each device, and the kernel's launches
+     and rectangle cells on this path; every launch fused, 4 at the
+     default size.  Every placed shard and genome slice must equal, bit
+     for bit, shard_database(..., with_prefix=True) + index_words_np and
+     genome_chunks_from_scodes over shard_genomes on the loaded index.
   9. chunk pipeline: phase 5's DB and reads in 4 chunks of a quarter
      of --pairs each (one device batch each at the default size)
      through the CLI on cuda, --no-chunk-overlap (depth 1) and the
@@ -137,8 +145,9 @@ Phases (each prints its own line; any failure exits non-zero):
      sector_table.default_bits.  Then a repeat-rich index (>= 1e7 keys
      from eval/realistic genomes, built in the run, and the k-mers of
      reads copied from them; >= 1% of kept queries to tier 2 with the
-     bucket table): the same checks and timings, the sector table also
-     at 2^25-2^27 rows.  Then one --no-prefix-rows
+     bucket table; its columns and genome rows derived on the card equal
+     to join_columns and the host rows bit for bit): the same checks and
+     timings, the sector table also at 2^25-2^27 rows.  Then one --no-prefix-rows
      CLI run on cuda (window_join on the path), byte-identical to phase
      5's.  Its numbers are printed as one {"join": ...} line.
  11. DB provisioning: a local NCBI mirror (eval/ncbi_mirror, written by
@@ -156,8 +165,9 @@ Phases (each prints its own line; any failure exits non-zero):
      linear one (db/gbff) on one-genome GBFFs of 1, 2 and 4 Mbp in turns:
      equal entries, both times.  Then 32,768 pairs planted from the
      chromosomes (by length) through the CLI on cuda on the installed
-     DB: stages, db_load's split, reads/min, peak, the sector_join and
-     fused sw_align launches, >= 99% of pairs to their genome's taxid
+     DB: stages, db_load's split, the card-derived columns equal to the
+     host versions, reads/min, peak, the sector_join and fused sw_align
+     launches, >= 99% of pairs to their genome's taxid
      or genus, gene hits in the XML; and the first 512 pairs on cpu and
      on cuda, byte-identical.  Its numbers are printed as one
      {"install": ...} line.
@@ -180,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import collections
 import os
@@ -1271,39 +1282,178 @@ def check_join(name: str, launched: dict, kernel: str, path=None) -> None:
 # DeviceDB.from_index's device peak at the end of each load, read by the
 # phases' load lines (the CLI's load runs inside cli.main)
 LOAD_PEAKS = []
+# the last load on the card (DeviceDB.from_index or dist.place_sharded_db:
+# its result and arguments) while KEPT["on"], for a phase to hold its
+# columns to the host versions after the run
+KEPT = {"on": False, "load": None}
 
 
 def record_load_peaks() -> None:
     """Wraps DeviceDB.from_index so that each load on the card appends
-    torch.cuda.max_memory_allocated() at its end to LOAD_PEAKS."""
+    torch.cuda.max_memory_allocated() at its end to LOAD_PEAKS, and both
+    it and dist.place_sharded_db so that, while KEPT["on"], the load's
+    result and arguments are kept in KEPT["load"]."""
+    from kslam_tpu_torch.parallel import dist
     from kslam_tpu_torch.pipeline import align
     load = align.DeviceDB.from_index.__func__
+    place = dist.place_sharded_db
 
     def from_index(cls, *args, **kwargs):
         db = load(cls, *args, **kwargs)
         if db.kmers.device.type == "cuda":
             LOAD_PEAKS.append(torch.cuda.max_memory_allocated(
                 db.kmers.device))
+            if KEPT["on"]:
+                KEPT["load"] = (db, args, kwargs)
         return db
+
+    def place_sharded_db(*args, **kwargs):
+        sdb = place(*args, **kwargs)
+        if KEPT["on"]:
+            KEPT["load"] = (sdb, args, kwargs)
+        return sdb
     align.DeviceDB.from_index = classmethod(from_index)
+    dist.place_sharded_db = place_sharded_db
+
+
+def kept_load():
+    """The load KEPT during the last run, which it stops keeping."""
+    load = KEPT["load"]
+    KEPT.update(on=False, load=None)
+    if load is None:
+        raise AssertionError("the run made no load on the card")
+    return load
+
+
+def equal_columns(name: str, got, want) -> dict:
+    """Compares the card's columns (tensors, or ints) with the host
+    versions bit for bit, one at a time; raises on any difference.
+    Returns {column: True}."""
+    same = {}
+    for col, g in got.items():
+        w = want[col]
+        if isinstance(g, torch.Tensor) or isinstance(w, np.ndarray):
+            same[col] = (g is None) == (w is None) and (
+                g is None or (g.dtype == torch.from_numpy(w[:0]).dtype
+                              and np.array_equal(g.cpu().numpy(), w)))
+        else:
+            same[col] = g == w
+    log(f"  {name}: the columns derived on the card equal the host "
+        f"versions bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{name}: card-derived columns differ from "
+                             f"the host versions: {same}")
+    return same
+
+
+def check_device_db(name: str, db, gindex, kidx) -> dict:
+    """Holds a DeviceDB loaded on the card (db/device_columns.py) to the
+    host versions on the same loaded index: join_columns (keys, idx_pack,
+    pstart, bits, window) and genome_chunks_from_scodes(sw_codes_np(
+    bases)).  Returns the host versions' seconds."""
+    from kslam_tpu_torch.db.kmer_index import join_columns
+    from kslam_tpu_torch.ops import encode, sw
+    t0 = time.perf_counter()
+    keys, pack, pstart, bits, window = join_columns(kidx)
+    rows = sw.genome_chunks_from_scodes(encode.sw_codes_np(
+        gindex.bases_concat))
+    host_s = time.perf_counter() - t0
+    equal_columns(name, dict(
+        keys=db.kmers, idx_pack=db.idx_pack, pstart=db.pstart,
+        bits=db.prefix_bits, window=db.prefix_window,
+        genome_rows=db.genome_chunks), dict(
+        keys=keys, idx_pack=pack, pstart=pstart, bits=bits, window=window,
+        genome_rows=rows))
+    log(f"  {name}: host versions (join_columns, sw_codes_np, "
+        f"genome_chunks_from_scodes) {host_s:.4f} s on the host; "
+        f"{len(kidx)} keys, {len(gindex.bases_concat)} bp")
+    return dict(host_versions_s=host_s, equal=True)
+
+
+def load_steps(name: str, kidx, bases, dev) -> dict:
+    """Times each step of the load's derivation on the card on a loaded
+    index and genome: db/device_columns.index_columns and genome_rows run
+    as DeviceDB.from_index runs them, with a stage timer that
+    synchronises at both ends of each part (the keys' staged copy, their
+    top-bit flip, the prefix table over every width it tries with the
+    sentinels, idx_pack's staged copy and packing, the bases' staged
+    copy, their map to SW code rows); then the prefix table's one
+    histogram at the picked width alone.  Each with the bytes it moves
+    (a copy: host to card; a device step: each input read once, each
+    output written once) and, for a device step, its bound at
+    MEMORY_BYTES_PER_S.  Returns the numbers."""
+    from kslam_tpu_torch.db import device_columns as dc
+    m, g = len(kidx), len(bases)
+    times = []
+
+    @contextlib.contextmanager
+    def stage(_):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+
+    keys, _, _, bits, window = dc.index_columns(kidx, dev, stage)
+    cap = keys.shape[0]
+    rows = dc.genome_rows(bases, dev, stage=stage)
+    n_rows = rows.numel()
+    del keys, rows
+    # (label, bytes, on the card) of index_columns' and genome_rows' parts
+    parts = [("keys H2D", 8 * m, False),
+             ("keys top-bit flip", 16 * m, True),
+             ("prefix table (every width tried) + sentinels",
+              8 * m + 8 * (cap - m), True),
+             ("idx_pack H2D + pack", 9 * m, False),
+             ("bases H2D", g, False),
+             ("SW code map", 2 * n_rows, True)]
+    if len(times) != len(parts):
+        raise AssertionError(f"{len(times)} timed parts, not {len(parts)}")
+    steps = {label: dict(s=t, bytes=nbytes, bound_s=nbytes /
+                         MEMORY_BYTES_PER_S if on_card else None)
+             for (label, nbytes, on_card), t in zip(parts, times)}
+    if bits:
+        d_keys = torch.as_tensor(np.asarray(kidx.kmers, np.uint64).view(
+            np.int64)).to(dev) ^ dc.FLIP
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        dc.prefix_counts(d_keys, bits)
+        torch.cuda.synchronize(dev)
+        nbytes = 8 * m + 4 * (1 << bits)
+        steps[f"one histogram at {bits} bits"] = dict(
+            s=time.perf_counter() - t0, bytes=nbytes,
+            bound_s=nbytes / MEMORY_BYTES_PER_S)
+        del d_keys
+    for label, x in steps.items():
+        rate = f"{x['bytes'] / x['s'] / 1e9:.2f} GB/s" if x["s"] else "-"
+        bound = f", bound {x['bound_s']:.6f} s" if x["bound_s"] else ""
+        log(f"  {name} load step {label}: {x['s']:.6f} s, {x['bytes']} B "
+            f"({rate}{bound})")
+    return dict(steps=steps, keys=m, bases=g, prefix_bits=bits,
+                window=window)
 
 
 def load_line(name: str, stages: dict, peak: int) -> dict:
-    """Logs a run's db_load split (host columns, H2D copies, the sector
-    table's build on the card, the rest: taxonomy and index files), the
-    peak device memory at the end of the load and over the run; returns
-    the numbers."""
+    """Logs a run's db_load split (the three files: taxonomy, genomes,
+    k-mer index; the host arrays, the staged H2D copies, the columns
+    derived on the card, the sector table's build on the card; the rest),
+    the peak device memory at the end of the load and over the run;
+    returns the numbers."""
     sec = {k: stages.get(k, {}).get("seconds", 0.0)
-           for k in ("db_load", "db_load_host", "db_load_h2d",
-                     "db_load_table")}
-    rest = sec["db_load"] - sec["db_load_host"] - sec["db_load_h2d"] - \
-        sec["db_load_table"]
+           for k in ("db_load", "db_load_taxonomy", "db_load_genomes",
+                     "db_load_kmers", "db_load_host", "db_load_h2d",
+                     "db_load_columns", "db_load_table")}
+    rest = sec["db_load"] - sum(v for k, v in sec.items() if k != "db_load")
     load_peak = LOAD_PEAKS[-1] if LOAD_PEAKS else None
-    log(f"  {name} db_load {sec['db_load']:.4f} s: host columns "
+    log(f"  {name} db_load {sec['db_load']:.4f} s: files (taxonomy "
+        f"{sec['db_load_taxonomy']:.4f} s, genomes "
+        f"{sec['db_load_genomes']:.4f} s, k-mer index "
+        f"{sec['db_load_kmers']:.4f} s), host arrays "
         f"{sec['db_load_host']:.4f} s, H2D {sec['db_load_h2d']:.4f} s, "
-        f"sector table on the card {sec['db_load_table']:.4f} s, the rest "
-        f"(taxonomy, index and genome files) {rest:.4f} s; peak device "
-        f"memory at the load's end {load_peak} B, over the run {peak} B")
+        f"columns on the card {sec['db_load_columns']:.4f} s, sector table "
+        f"on the card {sec['db_load_table']:.4f} s, the rest {rest:.4f} s; "
+        f"peak device memory at the load's end {load_peak} B, over the run "
+        f"{peak} B")
     return dict(sec, rest=rest, load_peak_bytes=load_peak, peak_bytes=peak)
 
 
@@ -1335,6 +1485,7 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
     zero_join_launches()
     out = os.path.join(tmp, "real_out")
+    KEPT["on"] = True
     wall = run_cli(db, out, os.path.join(tmp, "r1.fq"),
                    os.path.join(tmp, "r2.fq"), "cuda")
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
@@ -1344,6 +1495,19 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
     load = load_line("classification", stages, peak)
+    log(f"  against the load with host columns (PERF.md; NVIDIA H100 80GB "
+        f"HBM3, 700.00 W): db_load "
+        f"{load['db_load']:.4f} s (20.2676 s), its host part "
+        f"{load['db_load_host']:.4f} s (host columns 10.8255 s), H2D "
+        f"{load['db_load_h2d']:.4f} s (0.7576 s), peak over the run "
+        f"{peak} B (9142284800 B)")
+    kept, (gindex, kidx, _), _ = kept_load()
+    load["columns_check"] = check_device_db("phase 5's DB", kept, gindex,
+                                            kidx)
+    del kept
+    load["steps"] = load_steps("phase 5", kidx, gindex.bases_concat,
+                               torch.device("cuda"))
+    del gindex, kidx
     per_read = dict(line.split("\t") for line in
                     open(out + "_PerRead").read().strip().split("\n"))
     hits = sum(per_read.get(f"r{i}") == str(taxids[k])
@@ -1478,6 +1642,7 @@ def phase_mesh(ctx, tmp: str, shape: str = "2x2", expect=None):
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = sw_cuda.LAUNCH_CELLS = 0
     zero_join_launches()
     out = os.path.join(tmp, f"real_mesh_{shape}")
+    KEPT["on"] = True
     wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
                    ["--mesh", shape, "--shard-genomes"])
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
@@ -1510,10 +1675,66 @@ def phase_mesh(ctx, tmp: str, shape: str = "2x2", expect=None):
     log(f"  SW kernel on the mesh path: {launches} launches, {cells} "
         f"rectangle cells; mesh_sw {sec.get('mesh_sw', 0.0):.4f} s")
     log(f"  XML, _PerRead, _abbreviated byte-identical to phase 5: {same}")
+    log(f"  shard_placement {sec.get('shard_placement', 0.0):.4f} s (the "
+        f"placement with host columns, PERF.md; NVIDIA H100 80GB HBM3, "
+        f"700.00 W: 13.3164 s), db_load "
+        f"{sec.get('db_load', 0.0):.4f} s (8.8514 s)")
     if not same:
         raise AssertionError("the mesh run's outputs differ from phase 5")
+    sdb, (_, kidx, bases, offsets), kwargs = kept_load()
+    check_shards(f"mesh {shape}", sdb, kidx, bases, offsets, s_axis,
+                 kwargs.get("genome_sharded", False))
+    del sdb, kidx, bases
     check_fused("the mesh path", launches, fused, expect)
     return launches, fused, cells
+
+
+def check_shards(name: str, sdb, kidx, bases, offsets, num_shards: int,
+                 genome_sharded: bool) -> None:
+    """Holds each index shard and genome slice that place_sharded_db
+    derived on the cards to the host versions on the same loaded index:
+    shard_database(kidx, S, with_prefix=True) + index_words_np, and
+    genome_chunks_from_scodes of the SW codes (shard_genomes' slices with
+    --shard-genomes).  Each distinct tensor is compared once."""
+    from kslam_tpu_torch.db.kmer_index import index_words_np
+    from kslam_tpu_torch.ops import encode, sw
+    from kslam_tpu_torch.parallel import dist
+    t0 = time.perf_counter()
+    km, eid, off, rc, pstart, bits, window = dist.shard_database(
+        kidx, num_shards, with_prefix=True)
+    per, pw = len(km) // num_shards, (1 << bits) + 1
+    scodes = encode.sw_codes_np(bases)
+    if genome_sharded:
+        scodes, offs, _ = dist.shard_genomes(np.asarray(offsets), scodes,
+                                             num_shards)
+        g, e = len(scodes) // num_shards, len(offs) // num_shards
+    host_s = time.perf_counter() - t0
+    seen = set()
+    for row in range(len(sdb.kmers)):
+        for s in range(num_shards):
+            if id(sdb.kmers[row][s]) in seen:
+                continue
+            seen.add(id(sdb.kmers[row][s]))
+            sl = slice(s * per, (s + 1) * per)
+            keys, pack = index_words_np(km[sl], eid[sl], off[sl], rc[sl])
+            want = dict(keys=keys, idx_pack=pack, pstart=None if not bits
+                        else pstart[s * pw:(s + 1) * pw], bits=bits,
+                        window=window)
+            got = dict(keys=sdb.kmers[row][s], idx_pack=sdb.idx_pack[row][s],
+                       pstart=sdb.pstart[row][s], bits=sdb.prefix_bits,
+                       window=sdb.prefix_window)
+            if genome_sharded or s == 0:
+                want["genome_rows"] = sw.genome_chunks_from_scodes(
+                    scodes[s * g:(s + 1) * g] if genome_sharded else scodes)
+                got["genome_rows"] = sdb.genome_chunks[row][s]
+            if genome_sharded:
+                want["entry_offsets"] = offs[s * e:(s + 1) * e]
+                got["entry_offsets"] = sdb.entry_offsets[row][s]
+            equal_columns(f"{name} cell ({row}, {s})", got, want)
+            del keys, pack, want, got
+    log(f"  {name}: host versions (shard_database, index_words_np, "
+        f"sw_codes_np, shard_genomes, genome_chunks_from_scodes) "
+        f"{host_s:.4f} s on the host")
 
 
 def device_busy_share(trace_path: str):
@@ -2294,19 +2515,36 @@ def join_repeats(dev, seed: int, n_genomes: int = 96,
     checks and timings as phase 10's uniform index (join_all), the
     sector table also at 2^25-2^27 rows.  Returns the JSON-able
     numbers."""
+    from kslam_tpu_torch.db import device_columns
     from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
     from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
     from kslam_tpu_torch.eval import realistic
-    from kslam_tpu_torch.ops import encode, kmers
+    from kslam_tpu_torch.ops import encode, kmers, sw
     t0 = time.perf_counter()
     entries = realistic.make_realistic_entries(
         n_genomes=n_genomes, bp_each=bp_each, seed=seed + 7)
     seqs = [e.seq for e in entries]
     kidx = KmerIndex.build(GenbankIndex([
         GenbankEntry(bases=s.tobytes().decode()) for s in seqs]))
-    keys, _, pstart, bits, window = join_columns(kidx)
+    keys, pack, pstart, bits, window = join_columns(kidx)
     m = len(kidx)
     build_s = time.perf_counter() - t0
+    # the columns and genome rows db/device_columns derives on the card
+    # from this index and these genomes, against the host versions
+    t0 = time.perf_counter()
+    got = device_columns.index_columns(kidx, dev)
+    rows = device_columns.genome_rows(np.concatenate(seqs), dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    equal_columns("the repeat-rich index", dict(
+        zip(("keys", "idx_pack", "pstart", "bits", "window"), got),
+        genome_rows=rows), dict(
+        keys=keys, idx_pack=pack, pstart=pstart, bits=bits, window=window,
+        genome_rows=sw.genome_chunks_from_scodes(encode.sw_codes_np(
+            np.concatenate(seqs)))))
+    log(f"  repeat-rich index: columns and genome rows derived on the card "
+        f"in {card_s:.4f} s")
+    del got, rows, pack
     if m < 10**7:
         raise AssertionError(f"the repeat-rich index holds {m} keys, "
                              f"under 1e7")
@@ -2344,7 +2582,7 @@ def join_repeats(dev, seed: int, n_genomes: int = 96,
         raise AssertionError(f"repeat-rich: {share:.4%} of kept queries to "
                              f"tier 2 with the bucket table, under 1%")
     result.update(build_s=build_s, table_build=built, n_genomes=n_genomes,
-                  bp_each=bp_each, reads=n_reads)
+                  bp_each=bp_each, reads=n_reads, columns_on_card_s=card_s)
     return result
 
 
@@ -2607,6 +2845,7 @@ def phase_install(rng, tmp: str, seed: int):
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
     zero_join_launches()
     out = os.path.join(tmp, "installed_out")
+    KEPT["on"] = True
     wall = run_cli(db, out, paths[0], paths[1], "cuda")
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
     joins = join_launches()
@@ -2615,6 +2854,13 @@ def phase_install(rng, tmp: str, seed: int):
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
     load = load_line("installed DB", stages, peak)
+    kept, (gindex, kidx, _), _ = kept_load()
+    load["columns_check"] = check_device_db("the installed DB", kept,
+                                            gindex, kidx)
+    del kept
+    load["steps"] = load_steps("installed DB", kidx, gindex.bases_concat,
+                               torch.device("cuda"))
+    del gindex, kidx
     species = [100 + installed[k][0].g for k in g.tolist()]
     per_read = dict(line.split("\t") for line in
                     open(out + "_PerRead").read().strip().split("\n"))

@@ -16,8 +16,9 @@ The join's tables (prefix_table, bucket_table) are built here on the
 host, as in the reference package, and bucket_table shares its cache
 files (bucket_table.npy, bucket_meta.json in the DB directory) with it.
 join_columns gives the padded columns in the port's key encoding
-(ops/kmers.py); their device copy is pipeline/align.DeviceDB.from_index,
-or, on a mesh, parallel/dist.place_sharded_db.
+(ops/kmers.py) on the host: the plain version that db/device_columns.py,
+which pipeline/align.DeviceDB.from_index and parallel/dist.place_sharded_db
+load through, derives on the device bit for bit.
 """
 
 from __future__ import annotations

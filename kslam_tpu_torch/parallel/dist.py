@@ -10,7 +10,8 @@ single-controller design with its collectives written out:
     as the reference's virtual CPU devices do,
   * reads are split over the "data" axis (one sub-batch per data row),
   * the sorted k-mer index is range-sharded over the "index" axis
-    (shard_database: a range shard never splits a pileup), and each cell
+    (KmerIndex.shard_bounds: a range shard never splits a pileup; each
+    shard derived on its cards by place_sharded_db), and each cell
     joins its data row's reads against its own shard, with the shard's
     own prefix table (the global one clipped to the shard's range) and
     the exact tier 2 of ops/match.expand_seeds,
@@ -18,8 +19,9 @@ single-controller design with its collectives written out:
     onto the row's first device, merge-sorted and deduped there (exact:
     range shards never split a pileup and the sort erases shard order),
   * SW runs on each index shard's 1/S slice of the compacted rows, or,
-    with --shard-genomes (shard_genomes), on the shard that owns the
-    row's genome entry, against that shard's slice of the genome only,
+    with --shard-genomes (genome_layout: shard_genomes' entry ranges),
+    on the shard that owns the row's genome entry, against that shard's
+    slice of the genome only,
   * the alignments are gathered back, and the score screen and pairing
     run per data row; split_phase_a hands the rows to the chunk-wide
     phase B (pipeline/device_path.run_chunk_phase_b) like device batches.
@@ -51,7 +53,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..db.kmer_index import index_words_np
+from ..db import device_columns
 from ..ops import kmers, match, sw
 from ..pipeline import device_path
 from ..utils import metrics
@@ -366,51 +368,71 @@ def make_sharded_phase_a(mesh: Mesh, *, paired: bool, match_s: int,
     return step
 
 
-def place_sharded_db(mesh: Mesh, kidx, genome_scodes_np, entry_offsets_np,
+def place_sharded_db(mesh: Mesh, kidx, bases, entry_offsets_np,
                      genome_sharded: bool = False) -> ShardedDB:
-    """Moves the index range shards (sentinel-padded, with their clipped
-    prefix tables: shard_database(..., with_prefix=True)) onto the
-    devices of their index column and the genome chunk rows and offsets
-    onto every device (replicated) or, with genome_sharded, each
-    entry-range slice onto the devices of its column.  Each distinct
-    tensor goes once to each distinct device: on one card a replicated
-    genome is one tensor, not one per cell.  Per-chunk steps then move
-    no database bytes."""
+    """Derives on the devices of the mesh what shard_database(kidx, S,
+    with_prefix=True) + index_words_np and genome_chunks_from_scodes of
+    the SW codes of `bases` (ASCII, [G]) would give each cell, from the
+    slices of the loaded columns (db/device_columns.py): index range
+    shard s (kidx.shard_bounds) goes to the devices of its index column,
+    its keys and idx_pack sentinel-padded there, with its clipped prefix
+    table; the genome rows and offsets go to every device (replicated)
+    or, with genome_sharded, each entry-range slice (genome_layout) to
+    the devices of its column.  The prefix table's counts at each width
+    are the sum of the shards' counts, each counted on its own device
+    (shards split the sorted range, so the sums are exact), and shard
+    s's pstart is clip(pstart - lo, 0, hi - lo) of the global table.
+    Each distinct tensor is derived once on each distinct device: on one
+    card a replicated genome is one tensor, not one per cell.  Per-chunk
+    steps then move no database bytes."""
     index = mesh.shape["index"]
-    km, eid, off, rc, pstart, bits, window = shard_database(
-        kidx, index, with_prefix=True)
-    per = len(km) // index
+    bounds = kidx.shard_bounds(index)
+    span = [(int(bounds[s]), int(bounds[s + 1])) for s in range(index)]
+    devs = [list(dict.fromkeys(row[s] for row in mesh.devices))
+            for s in range(index)]
+    raw = {(s, dev): device_columns.upload_keys(
+        kidx.kmers[lo:hi], dev, shard_cap(bounds, device_columns.MAX_WINDOW))
+        for s, (lo, hi) in enumerate(span) for dev in devs[s]}
+    dev0 = mesh.devices[0][0]
+
+    def counts_of(bits):
+        return sum(device_columns.prefix_counts(
+            raw[(s, devs[s][0])][:hi - lo], bits).to(dev0)
+            for s, (lo, hi) in enumerate(span))
+    g_pstart, bits, window = device_columns.choose_prefix(
+        counts_of, len(kidx.kmers))
+    per = shard_cap(bounds, window)
+    placed = {}
+    for s, (lo, hi) in enumerate(span):
+        for dev in devs[s]:
+            keys = device_columns.seal_keys(raw.pop((s, dev)), hi - lo, per)
+            pack = device_columns.pack_column(
+                kidx.entry_id[lo:hi], kidx.offset[lo:hi], kidx.rc[lo:hi],
+                per, dev)
+            pstart = None if g_pstart is None else (
+                g_pstart.to(dev).to(torch.int64) - lo).clamp_(
+                    0, hi - lo).to(torch.int32)
+            placed[("index", s, dev)] = (keys, pack, pstart)
+    del g_pstart
     if genome_sharded:
-        scodes, offsets, e_bounds = shard_genomes(
-            np.asarray(entry_offsets_np), genome_scodes_np, index)
-        scodes = scodes.reshape(index, -1)
-        offsets = offsets.reshape(index, -1)
-        genome = lambda s: (sw.genome_chunks_from_scodes(scodes[s]),
-                            offsets[s])
+        e_bounds, g_per, offsets = genome_layout(
+            np.asarray(entry_offsets_np), index)
+        starts = np.asarray(entry_offsets_np)[e_bounds]
+        genome = lambda s, dev: (device_columns.genome_rows(
+            bases[starts[s]:starts[s + 1]], dev, length=g_per),
+            torch.as_tensor(offsets[s]).to(dev))
     else:
         e_bounds = None
-        chunks = sw.genome_chunks_from_scodes(genome_scodes_np)
         offsets = np.asarray(entry_offsets_np, np.int64)
-        genome = lambda s: (chunks, offsets)
-    placed = {}
-
-    def put(key, make, dev):
-        if (key, dev) not in placed:
-            placed[(key, dev)] = tuple(torch.as_tensor(a).to(dev)
-                                       for a in make())
-        return placed[(key, dev)]
-
-    def index_shard(s):
-        sl = slice(s * per, (s + 1) * per)
-        keys, pack = index_words_np(km[sl], eid[sl], off[sl], rc[sl])
-        if not bits:
-            return keys, pack
-        p = len(pstart) // index
-        return keys, pack, pstart[s * p:(s + 1) * p]
-
-    cells = [[(put(("index", s), functools.partial(index_shard, s), dev),
-               put(("genome", s if genome_sharded else 0),
-                   functools.partial(genome, s), dev))
+        genome = lambda s, dev: (device_columns.genome_rows(bases, dev),
+                                 torch.as_tensor(offsets).to(dev))
+    for s in range(index):
+        for dev in devs[s]:
+            key = ("genome", s if genome_sharded else 0, dev)
+            if key not in placed:
+                placed[key] = genome(s, dev)
+    cells = [[(placed[("index", s, dev)],
+               placed[("genome", s if genome_sharded else 0, dev)])
               for s, dev in enumerate(row)] for row in mesh.devices]
     grid = lambda f: tuple(tuple(f(c) for c in row) for row in cells)
     return ShardedDB(kmers=grid(lambda c: c[0][0]),
@@ -418,8 +440,38 @@ def place_sharded_db(mesh: Mesh, kidx, genome_scodes_np, entry_offsets_np,
                      genome_chunks=grid(lambda c: c[1][0]),
                      entry_offsets=grid(lambda c: c[1][1]),
                      e_bounds=e_bounds,
-                     pstart=grid(lambda c: c[0][2] if bits else None),
+                     pstart=grid(lambda c: c[0][2]),
                      prefix_bits=bits, prefix_window=window)
+
+
+def shard_cap(bounds, window: int) -> int:
+    """shard_database's padded shard length for shard `bounds` and the
+    prefix window: pow2(max(longest shard, 16) + 2*window)."""
+    per = max(int(np.max(bounds[1:] - bounds[:-1])), 16) + 2 * window
+    return 1 << (per - 1).bit_length()
+
+
+def genome_layout(entry_offsets: np.ndarray, num_shards: int):
+    """shard_genomes' layout without its copy of the codes: (e_bounds
+    int32 [S+1], the padded slice length g_per, offsets int64 [S,
+    Eper+1] rebased to each slice).  Slice s of the genome is
+    [entry_offsets[e_bounds[s]], entry_offsets[e_bounds[s+1]])."""
+    num_entries = len(entry_offsets) - 1
+    total = int(entry_offsets[-1])
+    targets = (np.arange(1, num_shards) * total) // num_shards
+    cuts = np.searchsorted(entry_offsets, targets, side="left")
+    e_bounds = np.concatenate([[0], cuts, [num_entries]]).astype(np.int32)
+    e_bounds = np.maximum.accumulate(e_bounds)
+    g_per = max(int(np.max(entry_offsets[e_bounds[1:]] -
+                           entry_offsets[e_bounds[:-1]])), 1)
+    e_per = max(int(np.max(e_bounds[1:] - e_bounds[:-1])), 1)
+    offsets = np.zeros((num_shards, e_per + 1), np.int64)
+    for s in range(num_shards):
+        lo, hi = int(e_bounds[s]), int(e_bounds[s + 1])
+        k = hi - lo
+        offsets[s, :k + 1] = entry_offsets[lo:hi + 1] - entry_offsets[lo]
+        offsets[s, k + 1:] = offsets[s, k]   # empty padding entries
+    return e_bounds, g_per, offsets
 
 
 def _to(x, dev):

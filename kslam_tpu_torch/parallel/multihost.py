@@ -115,7 +115,6 @@ def metagenomic_analysis_distributed(r1_path: str, r2_path: Optional[str],
     from ..io import sam as sam_io
     from ..io import xml_results
     from ..io.fastq import stream_read_batches
-    from ..ops import encode
     from ..ops.sw import check_params
     from ..pipeline import align, classify
     from ..pipeline.run import (_fill_cigars, chunk_objects, device_tables,
@@ -146,8 +145,8 @@ def metagenomic_analysis_distributed(r1_path: str, r2_path: Optional[str],
         if d_axis * s_axis > 1:
             mesh = dist.build_mesh(local, data=d_axis, index=s_axis)
             sharded_db = dist.place_sharded_db(
-                mesh, kidx, encode.sw_codes_np(gindex.bases_concat),
-                gindex.entry_offsets, genome_sharded=config.genome_sharded)
+                mesh, kidx, gindex.bases_concat, gindex.entry_offsets,
+                genome_sharded=config.genome_sharded)
             log(f"[p{pid}] local mesh (data={d_axis}, index={s_axis})")
         entry_taxids, lca_tables = device_tables(
             gindex, taxdb, device if mesh is None else mesh.devices[0][0])

@@ -8,7 +8,8 @@ sentinel-padded, the join's tables (the prefix table and, unless
 --no-prefix-rows, the sector table, built on the device from the keys
 at load: db/sector_table.py), the genome codes as [G/32, 32] rows, the
 entry offsets and, for the host-object path only (--device-pipeline
-off), the flat [G] genome codes.  The join's tier 2
+off), the flat [G] genome codes, all derived on the device from the
+loaded index (db/device_columns.py).  The join's tier 2
 is exact (ops/match.expand_seeds), so align_batch_to_database needs no
 overflow retry.
 
@@ -21,16 +22,18 @@ far less work.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import List
 
 import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..db import sector_table
+from ..db import device_columns, sector_table
 from ..db.genbank import GenbankIndex
-from ..db.kmer_index import KmerIndex, join_columns
+from ..db.kmer_index import KmerIndex
 from ..golden import ssw as golden_ssw
 from ..io.fastq import ReadBatch
 from ..ops import encode, kmers, match, sw
@@ -61,41 +64,42 @@ class DeviceDB:
                    device, flat_scodes: bool = False,
                    prefix_rows: bool = True) -> "DeviceDB":
         """Tensors on `device` from the host index objects (the same
-        GenbankIndex / KmerIndex the reference package loads).
-        flat_scodes adds the flat [G] genome copy that only the
-        host-object path's window gather reads.  The sector table is
-        built on `device` from the keys just copied there
+        GenbankIndex / KmerIndex the reference package loads), derived
+        there from the raw columns and bases (db/device_columns.py: equal
+        to join_columns and the host SW code rows).
+        flat_scodes adds the flat [G] genome codes that only the
+        host-object path's window gather reads: a view of the rows'
+        buffer.  The sector table is built on `device` from the keys
         (sector_table.build at sector_table.default_bits); nothing of
         it is read from or written to the DB directory.
         prefix_rows=False skips it: the join is then the prefix window
-        on pstart.  Three stages time the load: db_load_host (the host
-        columns), db_load_h2d (the copies) and db_load_table (the
-        sector table), each ending in a device synchronisation."""
+        on pstart.  Four stages time the load, each ending in a device
+        synchronisation: db_load_host (the host arrays the copies read),
+        db_load_h2d (the staged copies, idx_pack formed from each staged
+        chunk as it lands), db_load_columns (the keys' top bit, the
+        sentinels, the prefix table and the SW codes, on the device) and
+        db_load_table (the sector table)."""
         dev = torch.device(device)
-        with metrics.stage("db_load_host"):
-            keys, pack, pstart, bits, window = join_columns(kidx)
-            scodes = encode.sw_codes_np(gindex.bases_concat)
-            chunks = sw.genome_chunks_from_scodes(scodes)
-        with metrics.stage("db_load_h2d"):
-            db = cls(
-                kmers=torch.as_tensor(keys).to(dev),
-                idx_pack=torch.as_tensor(pack).to(dev),
-                genome_chunks=torch.as_tensor(chunks).to(dev),
-                entry_offsets=torch.as_tensor(
-                    np.asarray(gindex.entry_offsets, np.int64)).to(dev),
-                genome_scodes=torch.as_tensor(scodes).to(dev)
-                if flat_scodes else None,
-                pstart=None if pstart is None
-                else torch.as_tensor(pstart).to(dev),
-                prefix_bits=bits, prefix_window=window)
-            _sync(dev)
-        del keys, pack, scodes, chunks
+        stage = functools.partial(_timed, dev=dev)
+        with stage("db_load_host"):
+            bases = gindex.bases_concat
+            offsets = np.asarray(gindex.entry_offsets, np.int64)
+        keys, pack, pstart, bits, window = device_columns.index_columns(
+            kidx, dev, stage)
+        rows = device_columns.genome_rows(bases, dev, flat=flat_scodes,
+                                          stage=stage)
+        with stage("db_load_h2d"):
+            d_offsets = torch.as_tensor(offsets).to(dev)
+        db = cls(kmers=keys, idx_pack=pack,
+                 genome_chunks=rows[0] if flat_scodes else rows,
+                 entry_offsets=d_offsets,
+                 genome_scodes=rows[1] if flat_scodes else None,
+                 pstart=pstart, prefix_bits=bits, prefix_window=window)
         if prefix_rows and len(kidx):
-            with metrics.stage("db_load_table"):
+            with stage("db_load_table"):
                 db.sector_bits = sector_table.default_bits(len(kidx))
                 db.sector = sector_table.build(db.kmers, len(kidx),
                                                db.sector_bits)
-                _sync(dev)
         return db
 
     def join_tables(self) -> dict:
@@ -105,10 +109,14 @@ class DeviceDB:
                     sector_bits=self.sector_bits)
 
 
-def _sync(dev) -> None:
-    """Waits for the device's queued work (a stage's end)."""
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+@contextlib.contextmanager
+def _timed(name: str, dev):
+    """metrics.stage(name) ending in a synchronisation of `dev` (its
+    queued work is then in the stage's time)."""
+    with metrics.stage(name):
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def align_batch_to_database(batch: ReadBatch, db: DeviceDB,

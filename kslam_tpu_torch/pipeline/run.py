@@ -468,10 +468,13 @@ def metagenomic_analysis(r1_path: str, r2_path: Optional[str],
     use_device = config.device_pipeline != "off"
     db = mesh = sharded_db = None
     with metrics.stage("db_load"):
-        taxdb = TaxonomyDB.read_index(f"{database_dir}/taxDB") \
-            if not config.just_align else TaxonomyDB()
-        gindex = GenbankIndex.load(database_dir)
-        kidx = KmerIndex.load(database_dir)
+        with metrics.stage("db_load_taxonomy"):
+            taxdb = TaxonomyDB.read_index(f"{database_dir}/taxDB") \
+                if not config.just_align else TaxonomyDB()
+        with metrics.stage("db_load_genomes"):
+            gindex = GenbankIndex.load(database_dir)
+        with metrics.stage("db_load_kmers"):
+            kidx = KmerIndex.load(database_dir)
         if config.mesh_shape:
             # the reference package's parse (a malformed shape raises the
             # same ValueError); a mesh forces the device pipeline
@@ -486,8 +489,8 @@ def metagenomic_analysis(r1_path: str, r2_path: Optional[str],
             mesh = dist.build_mesh(dist.local_devices(device),
                                    data=d_axis, index=s_axis)
             sharded_db = dist.place_sharded_db(
-                mesh, kidx, encode.sw_codes_np(gindex.bases_concat),
-                gindex.entry_offsets, genome_sharded=config.genome_sharded)
+                mesh, kidx, gindex.bases_concat, gindex.entry_offsets,
+                genome_sharded=config.genome_sharded)
         log(f"Using (data={d_axis}, index={s_axis}) device mesh"
             + (" with entry-owner genome shards"
                if config.genome_sharded else ""))

@@ -4,8 +4,9 @@ fused forward + reverse kernel: odd shapes, n_valid, every row-count
 instantiation, wide scores, the chunked windows of the device pipeline),
 the host screen on CUDA against the CPU, the join's kernels
 (sector_join, bucket_join, window_join) against their plain versions,
-the sector table built on the card against the CPU's bit for bit, and
-the join's four backends (sector table, bucket table, prefix window,
+the sector table built on the card against the CPU's bit for bit, the
+DB's columns derived on the card (db/device_columns.py) against the host
+versions bit for bit, and the join's four backends (sector table, bucket table, prefix window,
 exact search) against each other on CUDA,
 the sharded phase A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
 against the CPU, and the CUDA CLI runs (classification and SAM, and
@@ -436,8 +437,7 @@ def _leaves(x):
 
 def _mesh_phase_a(device, gshard, gindex, kidx, bases, lengths, mid):
     mesh = dist.build_mesh(dist.local_devices(device), data=2, index=2)
-    sdb = dist.place_sharded_db(mesh, kidx,
-                                encode.sw_codes_np(gindex.bases_concat),
+    sdb = dist.place_sharded_db(mesh, kidx, gindex.bases_concat,
                                 gindex.entry_offsets, genome_sharded=gshard)
     step = dist.make_sharded_phase_a(
         mesh, paired=True, match_s=2, mismatch=3, gap_open=5, gap_extend=2,
@@ -957,3 +957,32 @@ def test_device_db_sector_table_on_card(cuda_device):
     assert card.sector.device.type == "cuda"
     assert card.sector.data_ptr() % 32 == 0
     assert torch.equal(card.sector.cpu(), cpu.sector)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage_bytes", [None, 8 * 37])
+def test_device_columns_on_card(cuda_device, monkeypatch, stage_bytes):
+    """db/device_columns on the card: index_columns equals join_columns
+    and genome_rows the host SW code rows, bit for bit, on a repeat-rich
+    index (the prefix table's 99.9th-percentile branch) and a 256-value
+    genome; with staging chunks of 37 keys the ring of pinned buffers
+    wraps hundreds of times, each refill waiting on its event."""
+    from kslam_tpu_torch.db import device_columns
+    if stage_bytes:
+        monkeypatch.setattr(device_columns, "STAGE_BYTES", stage_bytes)
+        monkeypatch.setattr(device_columns, "SLICE", 333)
+    kidx = _realistic_index()
+    want = join_columns(kidx)
+    got = device_columns.index_columns(kidx, cuda_device)
+    for a, b_ in zip(got[:3], want[:3]):
+        assert a.device.type == "cuda"
+        np.testing.assert_array_equal(a.cpu().numpy(), b_)
+    assert got[3:] == want[3:]
+    bases = np.random.default_rng(5).permutation(
+        np.resize(np.arange(256, dtype=np.uint8), 100_003))
+    rows, flat = device_columns.genome_rows(bases, cuda_device, flat=True)
+    np.testing.assert_array_equal(
+        rows.cpu().numpy(),
+        sw.genome_chunks_from_scodes(encode.sw_codes_np(bases)))
+    np.testing.assert_array_equal(flat.cpu().numpy(),
+                                  encode.sw_codes_np(bases))

@@ -18,7 +18,7 @@ from kslam_tpu.db.kmer_index import KmerIndex as JKmerIndex
 from kslam_tpu.ops import encode as jencode
 from kslam_tpu.parallel import dist as jdist
 from kslam_tpu_torch.db.kmer_index import KmerIndex
-from kslam_tpu_torch.ops import encode, kmers, sw
+from kslam_tpu_torch.ops import kmers, sw
 from kslam_tpu_torch.parallel import dist
 
 torch.set_num_threads(1)
@@ -99,7 +99,7 @@ def test_shard_layouts_equal_jax(num_shards):
     pw = len(jpstart) // num_shards
     for gshard in (False, True):
         mesh = dist.build_mesh(["cpu"], data=2, index=num_shards)
-        sdb = dist.place_sharded_db(mesh, tk, scodes, jg.entry_offsets,
+        sdb = dist.place_sharded_db(mesh, tk, jg.bases_concat, jg.entry_offsets,
                                     genome_sharded=gshard)
         j_scodes, j_offs, j_eb = jdist.shard_genomes(
             jg.entry_offsets, scodes, num_shards)
@@ -168,8 +168,7 @@ def test_sharded_align_step_equals_jax(data, index):
                  jnp.asarray(jg.entry_offsets))
 
     mesh = dist.build_mesh(["cpu"], data=data, index=index)
-    sdb = dist.place_sharded_db(mesh, tk,
-                                encode.sw_codes_np(jg.bases_concat),
+    sdb = dist.place_sharded_db(mesh, tk, jg.bases_concat,
                                 jg.entry_offsets)
     step = dist.make_sharded_align_step(mesh, config,
                                         window_len=bases.shape[1])

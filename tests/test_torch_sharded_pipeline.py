@@ -16,7 +16,7 @@ from kslam_tpu.pipeline import run as jrun
 from kslam_tpu_torch.config import PipelineConfig
 from kslam_tpu_torch.db.kmer_index import KmerIndex
 from kslam_tpu_torch.io.fastq import ReadBatch
-from kslam_tpu_torch.ops import encode, lca
+from kslam_tpu_torch.ops import lca
 from kslam_tpu_torch.parallel import dist
 from kslam_tpu_torch.pipeline import run
 from tests.test_sharded_pipeline import (  # noqa: F401
@@ -67,8 +67,7 @@ def _port_mesh(setup, port, data, index, gshard, paired=True):  # noqa: F811
     if not paired:
         tbatch = _single_end(tbatch, ReadBatch)
     mesh = dist.build_mesh(["cpu"], data=data, index=index)
-    sdb = dist.place_sharded_db(mesh, tkidx,
-                                encode.sw_codes_np(gindex.bases_concat),
+    sdb = dist.place_sharded_db(mesh, tkidx, gindex.bases_concat,
                                 gindex.entry_offsets, genome_sharded=gshard)
     b, ov_cols = run.process_chunk(
         tbatch, None, PipelineConfig(genome_sharded=gshard), entry_taxids,
