@@ -7,8 +7,8 @@ Phases (each prints its own line; any failure exits non-zero):
   1. device: the card's name and power limit; a CUDA device is required.
   2. build: the CUDA kernel library (ops/cuda_lib.py: one nvcc per
      kslam_tpu_torch/csrc/*.cu, all started together, linked into one
-     library: the SW kernels and the join's sector_join, bucket_join
-     and window_join;
+     library: the SW kernels, the join's sector_join, bucket_join
+     and window_join, and the SAM path's sam_cigar and sam_diff;
      ptxas's registers and spills of every kernel are printed) and the
      native host library (make -C csrc, the first of $CXX, g++, c++ that
      links OpenMP), built in parallel; both must load.
@@ -52,7 +52,19 @@ Phases (each prints its own line; any failure exits non-zero):
      keys, and on a mesh shard's collapsed prefixes; 1, 255 and 257
      queries; and match.join_bounds through each kernel (one launch)
      equal to the plain lookup + tier 2 for q_ok all, none and a random
-     half.
+     half.  Then the SAM path's kernels on a synthetic mix of 32,768
+     alignments, richer in indels and clipped windows than phase 6's
+     planted reads (eval/sam_cases: reads of 150 bp copied from 8
+     entries of 250 kbp, forward and rc, 30% with indels, 5% with an
+     insertion and a deletion of 3-6 bases, 5% at an entry's end or
+     before its start, 5% with N, lowercase or a short length; phase A's
+     ends moved for a tenth): sam_cigar equal to its plain version on
+     the card's tensors and to native.ssw_cigar_batch on the host,
+     sam_diff equal to its plain version; each timed in turns (plain,
+     kernel, kernel, plain) with its bound: sam_cigar's DP cells (the
+     forward and reverse passes, the banded DP's attempts) at 8.5 int32
+     instructions a cell over the SMs' dispatch rate, sam_diff's bytes
+     at 3.35 TB/s.
   4. cuda vs cpu: a small FASTA DB, taxonomy and paired FASTQ made from
      --seed, run by the port's CLI on cuda and on cpu: classification;
      --sam-file on paired reads; --just-align --sam-file on single-end
@@ -67,6 +79,8 @@ Phases (each prints its own line; any failure exits non-zero):
      through the kernel of its table (sector_join with the sector table
      DeviceDB builds at load; window_join on a mesh and with
      --no-prefix-rows) and launch no other; the cpu runs launch none.
+     Every SAM run on the card (here, in phase 6 and phase 8) must
+     launch sam_cigar and sam_diff, the cpu runs neither.
   5. real size: the 1.6 Gbp synthetic DB of the reference package's
      bench (16 genomes x 100 Mbp, ~1e8 stride-16 index k-mers) and
      262,144 planted 150 bp reads (131,072 pairs, 1% mutations) through
@@ -87,7 +101,16 @@ Phases (each prints its own line; any failure exits non-zero):
      phase_a_sw stage.
   6. real-size SAM: phase 5's DB and reads with --sam-file on cuda;
      >= 99% of the planted pairs must have their R1 primary line on the
-     planted genome within 5 of the planted position.
+     planted genome within 5 of the planted position.  The run must
+     launch sam_cigar and sam_diff (counts reset just before it, read
+     just after) and call none of native.ssw_cigar_batch,
+     compute_cigars_batch, get_cigar_and_md or the kernels' plain
+     versions; prints sam_output beside the host cigars' 48.783 s.
+     Then, on the host: the run's sam_cigar columns equal to native.ssw_cigar_batch
+     on every alignment, its CIGAR, MD, NM and prob equal to the copied
+     get_cigar_and_md on >= 20,000 alignments (every one with an indel
+     or a soft clip among them), and the SAM lines of those alignments'
+     reads equal to the copied _fill_cigars + write_sam_pairs.
   7. host-object path: --device-pipeline off on phase 5's DB with the
      first --host-pairs pairs (its pairing is Python); >= 99% of the
      pairs classified, every SW launch a fused sw_align launch.
@@ -101,6 +124,9 @@ Phases (each prints its own line; any failure exits non-zero):
      default size.  Every placed shard and genome slice must equal, bit
      for bit, shard_database(..., with_prefix=True) + index_words_np and
      genome_chunks_from_scodes over shard_genomes on the loaded index.
+     Then the same run with --sam-file: it must launch both SAM kernels
+     and window_join, its SAM (without @PG) must be byte-identical to
+     phase 6's and its other files to phase 5's.
   9. chunk pipeline: phase 5's DB and reads in 4 chunks of a quarter
      of --pairs each (one device batch each at the default size)
      through the CLI on cuda, --no-chunk-overlap (depth 1) and the
@@ -180,9 +206,9 @@ chunks.  Each must launch the kernel and write what the single-device
 CPU run wrote (the two-process SAM compared as one header and its body
 lines sorted).
 The last three lines are the card's name and power limit (nvidia-smi),
-a JSON object describing each kernel (the SW kernels and the three
-join kernels, each with its launches on its paths, phase 11's as
-"installed_db"), and the contract object
+a JSON object describing each kernel (the SW kernels, the three
+join kernels and the two SAM kernels, each with its launches on its
+paths, phase 11's as "installed_db"), and the contract object
 {"ok": true, "device": {...}}.
 """
 
@@ -589,6 +615,220 @@ def phase_join_kernels(rng, dev) -> None:
             f"for q_ok all, none and a random half")
 
 
+# --- the SAM path's kernels (sam_cigar, sam_diff) ---
+
+SW_DEFAULT = (2, 3, 5, 2)     # SWParams(): match, mismatch, gap_open, extend
+SAM_KEYS = ("score", "ref_begin", "ref_end", "query_begin", "query_end",
+            "cigar_len")
+
+
+def band_cells(read_sub, ref_n, w0, w1) -> int:
+    """Cells of the banded DP's attempts at w0, 2 w0, ..., w1 (numpy; one
+    row an alignment)."""
+    total = 0
+    if len(w0) == 0:
+        return 0
+    w = w0.astype(np.int64).copy()
+    live = np.ones(len(w), bool)
+    i = np.arange(int(read_sub.max()))[None, :]
+    while live.any():
+        beg = np.maximum(i - w[:, None], 0)
+        end = np.minimum(i + w[:, None], ref_n[:, None] - 1)
+        cells = np.clip(end - beg + 1, 0, None) * (i < read_sub[:, None])
+        total += int(cells[live].sum())
+        live &= w < w1
+        w = np.where(live, w * 2, w)
+    return total
+
+
+def sam_cigar_work(c, win_len, ref_start, out, bands):
+    """(cells, bytes) sam_cigar needs on these alignments: the forward
+    pass m x wlen, the reverse pass (query_end + 1) x (ref_end + 1) in
+    the window's own coordinates, the banded DP's attempts (from the
+    plain version's bands); the reads, windows and columns in, the
+    columns and runs out, each once."""
+    m = c["lengths"][c["read_id"]].astype(np.int64)
+    w = win_len.astype(np.int64)
+    rc = c["rc"].astype(bool)
+    rb = out["ref_begin"].astype(np.int64) - ref_start
+    re = out["ref_end"].astype(np.int64) - ref_start
+    qb, qe = (out[k].astype(np.int64) for k in ("query_begin", "query_end"))
+    re_w = np.where(rc, w - 1 - rb, re)
+    qe_w = np.where(rc, m - 1 - qb, qe)
+    rev = np.where((re_w >= 0) & (m > 0), (qe_w + 1) * (re_w + 1), 0)
+    cells = int((m * w).sum() + rev.sum())
+    for read_len, ref_len, w0, w1 in bands:
+        cells += band_cells(read_len, ref_len, w0, w1)
+    runs = np.clip(out["cigar_len"], 0, None).astype(np.int64)
+    nbytes = int(m.sum() + w.sum() + 256 + 17 * len(m) + 24 * len(m)
+                 + 4 * runs.sum())
+    return cells, nbytes
+
+
+def sam_diff_bytes(c, out, dlen, cigar_len) -> int:
+    """Bytes sam_diff needs on these alignments, each once: the reads and
+    qualities, the window bytes its walks read, the columns and runs in;
+    the texts and columns out."""
+    m = c["lengths"][c["read_id"]].astype(np.int64)
+    runs = np.clip(cigar_len, 0, None).astype(np.int64)
+    window = np.minimum(out["ref_need"], dlen).astype(np.int64)
+    return int(2 * m.sum() + window.sum() + 25 * len(m) + 4 * runs.sum()
+               + 1600 + out["cigar_n"].astype(np.int64).sum()
+               + out["md_n"].astype(np.int64).sum() + 24 * len(m))
+
+
+def timed_once(fn, n: int = 1):
+    """(fn()'s last result, mean ms of n calls by CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        res = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(stop) / n
+
+
+def turns(plain_ms: float, plain, kernel, iters: int):
+    """plain, kernel, kernel, plain by CUDA events: the first plain turn
+    is plain_ms (the call that was checked), the kernel's turns the mean
+    over iters calls after a warm-up call.  Returns the plain and kernel
+    means and the four readings."""
+    kernel()
+    k1 = timed_once(kernel, iters)[1]
+    k2 = timed_once(kernel, iters)[1]
+    p2 = timed_once(plain)[1]
+    return (plain_ms + p2) / 2, (k1 + k2) / 2, [plain_ms, k1, k2, p2]
+
+
+def phase_sam_kernels(rng, dev, n: int = 32768):
+    """sam_cigar and sam_diff on a synthetic mix of n alignments
+    (eval/sam_cases: forward and rc, 30% with indels, 5% with a
+    shifted middle, 5% at an entry's end or before its start, 5% with N,
+    lowercase or a short length; phase A's ends moved for a tenth):
+    each equal to its plain version on the card's tensors, sam_cigar
+    also to the native host call; timed in turns.  Returns their kernels
+    line numbers."""
+    from kslam_tpu_torch.config import SWParams
+    from kslam_tpu_torch.eval import sam_cases
+    from kslam_tpu_torch.io import native
+    from kslam_tpu_torch.ops import sam_cuda
+    t0 = time.perf_counter()
+    c = sam_cases.alignments(rng, sam_cases.entries(rng, 8, 250_000), n)
+    max_ops = sam_cuda.native_max_ops(c["lengths"])
+    ops = sam_cases.cigar_operands(c, dev)
+    log(f"  SAM alignments: {n} drawn in {time.perf_counter() - t0:.1f} s "
+        f"({int(c['rc'].sum())} rc, {int((c['rel_pos'] < 0).sum())} with "
+        f"rel_pos < 0)")
+    got = sam_cuda.sam_cigar(*ops, SW_DEFAULT, 0, max_ops)
+    torch.cuda.synchronize()
+    bands = []
+    real = sam_cuda.banded_cigar_plain
+
+    def record(*args, **kwargs):
+        res = real(*args, **kwargs)
+        bands.append(tuple(x.cpu().numpy() for x in
+                           (args[1], args[3], args[5], res[2])))
+        return res
+    sam_cuda.banded_cigar_plain = record
+    try:
+        plain, cigar_plain_ms = timed_once(
+            lambda: sam_cuda.sam_cigar_plain(*ops, SW_DEFAULT, 0, max_ops))
+    finally:
+        sam_cuda.banded_cigar_plain = real
+    width = int(plain["cigar_len"].max())
+    g = {k: got[k].cpu().numpy() for k in SAM_KEYS}
+    p = {k: plain[k].cpu().numpy() for k in SAM_KEYS}
+    nat = native.ssw_cigar_batch(c["reads"], c["lengths"], c["bases"],
+                                 c["offsets"], c["read_id"], c["entry_id"],
+                                 c["rel_pos"], c["rc"],
+                                 SWParams(), score_filter=0)
+    gbuf = got["cigar_buf"][:, :width].cpu().numpy()
+    same_plain = all(np.array_equal(g[k], p[k]) for k in SAM_KEYS) and \
+        np.array_equal(gbuf, plain["cigar_buf"][:, :width].cpu().numpy())
+    nbuf = np.where(np.arange(width)[None, :] < nat["cigar_len"][:, None],
+                    nat["cigar_buf"][:, :width], 0)
+    same_native = all(np.array_equal(g[k], nat[k]) for k in SAM_KEYS) and \
+        np.array_equal(np.where(np.arange(width)[None, :] <
+                                g["cigar_len"][:, None], gbuf, 0), nbuf)
+    err = max(int(np.abs(g[k].astype(np.int64) - p[k]).max())
+              for k in SAM_KEYS)
+    runs = g["cigar_len"]
+    w_final = np.concatenate([b[3] for b in bands]) if bands else \
+        np.zeros(0)
+    w_first = np.concatenate([b[2] for b in bands]) if bands else \
+        np.zeros(0)
+    log(f"  sam_cigar vs its plain version: equal {same_plain}, max abs "
+        f"err {err}; vs native.ssw_cigar_batch on the host: equal "
+        f"{same_native}; runs up to {width}, aborted "
+        f"{int((runs == sam_cuda.ABORTED).sum())}, bands doubled at least "
+        f"twice {int((w_final >= 4 * np.maximum(w_first, 1)).sum())}, "
+        f"wider than the first slab (W_CAP {sam_cuda.W_CAP}) "
+        f"{int((w_final > sam_cuda.W_CAP).sum())}")
+    if not (same_plain and same_native):
+        raise AssertionError("sam_cigar differs from its plain version or "
+                             "the native call")
+    rb, qb, qe = sam_cases.phase_a_ends(rng, g["ref_begin"],
+                                        g["query_begin"], g["query_end"],
+                                        c["lengths"])
+    cl = g["cigar_len"].copy()
+    dops = sam_cases.diff_operands(c, gbuf, cl, rb, qb, qe, dev)
+    dgot = sam_cuda.sam_diff(*dops)
+    dplain, diff_plain_ms = timed_once(lambda: sam_cuda.sam_diff_plain(*dops))
+    same_diff = all(torch.equal(dgot[k], dplain[k]) for k in dgot)
+    lp_err = float((dgot["lp"] - dplain["lp"]).abs().max())
+    dg = {k: v.cpu().numpy() for k, v in dgot.items()}
+    log(f"  sam_diff vs its plain version: equal {same_diff} (texts, "
+        f"lengths, NM, ref_need, log10 probability: max abs err {lp_err}); "
+        f"CIGAR up to {int(dg['cigar_n'].max())} B, MD up to "
+        f"{int(dg['md_n'].max())} B (cap {sam_cuda.TEXT_CAP})")
+    if not same_diff:
+        raise AssertionError("sam_diff differs from its plain version")
+    # timings, in turns
+    win_len = ops[5].cpu().numpy()
+    ref_start = ops[6].cpu().numpy()
+    cells, nbytes = sam_cigar_work(c, win_len, ref_start, g, bands)
+    plain_ms, ms, reads = turns(
+        cigar_plain_ms,
+        lambda: sam_cuda.sam_cigar_plain(*ops, SW_DEFAULT, 0, max_ops),
+        lambda: sam_cuda.sam_cigar(*ops, SW_DEFAULT, 0, max_ops), 5)
+    bound_ms, bound_by = sw_bound(cells, nbytes)
+    log(f"  timing sam_cigar ({n} alignments, in turns {reads} ms): kernel "
+        f"{ms:.4f} ms, {cells} cells needed ({cells / ms / 1e6:.1f} GCUPS); "
+        f"bound {bound_ms:.4f} ms ({bound_by}; {OPS_PER_CELL} int32 "
+        f"instructions a cell), {bound_ms / ms:.2%} of it; plain "
+        f"{plain_ms:.1f} ms")
+    cigar = {"name": "sam_cigar", "route": "cuda",
+             "source": "kslam_tpu_torch/csrc/sam.cu",
+             "replaces": "csrc/ssw_batch.cc:229 (kslam_ssw_cigar_batch, "
+                         "host C++; no TPU kernel)",
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_share": bound_ms / ms, "cells_needed": cells,
+             "shape": f"{n} alignments, reads of 150 bp (stride 160)",
+             "turns_ms": reads, "library_ms": None}
+    dbytes = sam_diff_bytes(c, dg, dops[11].cpu().numpy(), cl)
+    plain_ms, ms, reads = turns(diff_plain_ms,
+                                lambda: sam_cuda.sam_diff_plain(*dops),
+                                lambda: sam_cuda.sam_diff(*dops), 20)
+    bound_ms = dbytes / MEMORY_BYTES_PER_S * 1e3
+    log(f"  timing sam_diff ({n} alignments, in turns {reads} ms): kernel "
+        f"{ms:.4f} ms; bound {bound_ms:.4f} ms (bytes: {dbytes} B at 3.35 "
+        f"TB/s), {bound_ms / ms:.2%} of it; plain {plain_ms:.1f} ms")
+    diff = {"name": "sam_diff", "route": "cuda",
+            "source": "kslam_tpu_torch/csrc/sam.cu",
+            "replaces": "kslam_tpu/io/sam.py:40 (get_cigar_and_md, host "
+                        "Python; no TPU kernel)",
+            "max_abs_err": lp_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / ms, "bytes_needed": dbytes,
+            "shape": f"{n} alignments, reads of 150 bp (stride 160)",
+            "turns_ms": reads, "library_ms": None}
+    return cigar, diff
+
+
+
 def copied_reads(rng, genome, starts, rc, l: int):
     """Reads of l codes copied from genome at starts, reverse-complemented
     where rc, 1% mutated."""
@@ -989,6 +1229,7 @@ def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
         extra = list(flags) + (["--sam-file", out + ".sam"] if sam else [])
         before, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
         join_before = dict(join_cuda.JOIN_LAUNCHES)
+        zero_sam_launches()
         secs = run_cli(db, out, r1, r2, device, extra)
         launched = sw_cuda.LAUNCHES - before
         fused = sw_cuda.ALIGN_LAUNCHES - fused
@@ -1001,9 +1242,14 @@ def compare_devices(tmp: str, db: str, name: str, r1: str, r2, flags,
             check_fused(f"{name} cuda", launched, fused)
             check_join(f"{name} cuda", joins, "sector_join",
                        path=path or f"small_{name}")
-        elif launched or any(joins.values()):
+            if sam:
+                check_sam(f"{name} cuda", sam_launches(),
+                          path=path or f"small_{name}")
+        elif launched or any(joins.values()) or \
+                any(sam_launches().values()):
             raise AssertionError(f"{name}: {launched} SW launches, join "
-                                 f"launches {joins} on cpu")
+                                 f"launches {joins}, SAM launches "
+                                 f"{sam_launches()} on cpu")
     sizes = [len(x) for x in outs["cuda"]]
     same = outs["cpu"] == outs["cuda"]
     log(f"  {name}: outputs byte-identical between cuda and cpu: {same} "
@@ -1026,10 +1272,13 @@ def run_mesh_cuda(tmp: str, db: str, name: str, r1: str, r2, flags,
     extra = list(flags) + (["--sam-file", out + ".sam"] if sam else [])
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
     zero_join_launches()
+    zero_sam_launches()
     secs = run_cli(db, out, r1, r2, "cuda", extra)
     launched, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
     check_join(name, join_launches(), "window_join" if "--mesh" in flags
                else "sector_join", path=f"small_{name}")
+    if sam:
+        check_sam(name, sam_launches(), path=f"small_{name}")
     same = read_outputs(out, sam) == want
     log(f"  {name} cuda: {secs:.2f} s, {launched} SW kernel launches; "
         f"outputs byte-identical to the single-device CPU run: {same}")
@@ -1051,6 +1300,8 @@ _CLI_PROCESS = (
     "import json\n"
     "print('join launches', json.dumps(join_cuda.JOIN_LAUNCHES),\n"
     "      flush=True)\n"
+    "from kslam_tpu_torch.ops import sam_cuda\n"
+    "print('sam launches', json.dumps(sam_cuda.SAM_LAUNCHES), flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -1095,15 +1346,18 @@ def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
                 p.communicate()
     secs = time.perf_counter() - t0
     launches, fused, joins = [], [], []
+    sams = collections.Counter()
     for pid, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
         m = re.search(r"SW launches (\d+) (\d+)", stdout)
         j = re.search(r"join launches (\{.*\})", stdout)
-        if p.returncode != 0 or m is None or j is None:
+        k = re.search(r"sam launches (\{.*\})", stdout)
+        if p.returncode != 0 or m is None or j is None or k is None:
             raise AssertionError(f"process {pid} exited {p.returncode}:\n"
                                  f"{stderr[-3000:]}")
         launches.append(int(m.group(1)))
         fused.append(int(m.group(2)))
         joins.append(json.loads(j.group(1)))
+        sams.update(json.loads(k.group(1)))
 
     def split_sam(text: bytes):
         lines = text.splitlines(keepends=True)
@@ -1125,6 +1379,7 @@ def run_two_processes(tmp: str, db: str, r1: str, r2, flags, want,
         check_fused(f"{name} process {pid}", launches[pid], fused[pid])
         check_join(f"{name} process {pid}", joins[pid], join_kernel)
     JOIN_PATHS[name] = {join_kernel: sum(j[join_kernel] for j in joins)}
+    check_sam(name, dict(sams))
     return sum(fused)
 
 
@@ -1251,6 +1506,31 @@ def check_fused(name: str, launches: int, fused: int, expect=None) -> None:
 
 # each path's join kernel launches on the card, for the kernels line
 JOIN_PATHS = {}
+# each SAM path's sam_cigar and sam_diff launches, for the kernels line
+SAM_PATHS = {}
+# sam_cigar's and sam_diff's times on phase 6's alignments, per call of
+# overlap_diffs, for the kernels line
+RUN_TIMES = []
+
+
+def sam_launches() -> dict:
+    from kslam_tpu_torch.ops import sam_cuda
+    return dict(sam_cuda.SAM_LAUNCHES)
+
+
+def zero_sam_launches() -> None:
+    from kslam_tpu_torch.ops import sam_cuda
+    for k in sam_cuda.SAM_LAUNCHES:
+        sam_cuda.SAM_LAUNCHES[k] = 0
+
+
+def check_sam(name: str, launched: dict, path=None) -> None:
+    """A SAM run on the card must launch both SAM kernels."""
+    log(f"  {name}: SAM kernel launches {launched}")
+    if min(launched.values()) == 0:
+        raise AssertionError(f"{name}: a SAM kernel was not launched: "
+                             f"{launched}")
+    SAM_PATHS[path or name] = dict(launched)
 
 
 def join_launches() -> dict:
@@ -1537,8 +1817,201 @@ def phase_real(rng, tmp: str, mbp: int, n_pairs: int, expect=None):
         stages=stages)
 
 
+def watch_sam_path():
+    """For one run on the card: keeps the arguments and results of
+    sam_columns.write_sam and overlap_diffs and the outputs of
+    sam_cuda.sam_cigar, and counts the calls of the host versions that a
+    SAM run on the card must not make (the native cigar call,
+    compute_cigars_batch, get_cigar_and_md, the kernels' plain versions).
+    Returns (kept, calls, restore)."""
+    from kslam_tpu_torch.io import native, sam as sam_io, sam_columns
+    from kslam_tpu_torch.ops import sam_cuda
+    from kslam_tpu_torch.pipeline import align
+    kept = {"write": [], "diffs": [], "cigar": []}
+    calls = collections.Counter()
+    saved = []
+
+    def wrap(mod, name, make):
+        real = getattr(mod, name)
+        saved.append((mod, name, real))
+        setattr(mod, name, make(real))
+
+    def counting(label):
+        def make(real):
+            def call(*args, **kwargs):
+                calls[label] += 1
+                return real(*args, **kwargs)
+            return call
+        return make
+
+    for mod, name in ((native, "ssw_cigar_batch"),
+                      (align, "compute_cigars_batch"),
+                      (sam_io, "get_cigar_and_md"),
+                      (sam_cuda, "sam_cigar_plain"),
+                      (sam_cuda, "sam_diff_plain")):
+        calls[name] = 0
+        wrap(mod, name, counting(name))
+
+    def keeping(key, args_too: bool):
+        def make(real):
+            def call(*args, **kwargs):
+                res = real(*args, **kwargs)
+                kept[key].append((args, res) if args_too else res)
+                return res
+            return call
+        return make
+
+    wrap(sam_columns, "write_sam", keeping("write", True))
+    wrap(sam_columns, "overlap_diffs", keeping("diffs", True))
+    wrap(sam_cuda, "sam_cigar", keeping("cigar", False))
+
+    def restore():
+        for mod, name, real in reversed(saved):
+            setattr(mod, name, real)
+    return kept, calls, restore
+
+
+def time_run_kernels(overlaps, filled, batch, gindex, config) -> dict:
+    """sam_cigar's and sam_diff's own times (CUDA events) on a SAM run's
+    alignments, from the operands the run built (sam_columns.operands),
+    and the forward and reverse passes' cells sam_cigar needs on them
+    (its banded DP's cells not counted)."""
+    from kslam_tpu_torch.io import sam_columns
+    from kslam_tpu_torch.ops import sam_cuda
+    dev = torch.device("cuda")
+    t, host = sam_columns.operands(overlaps, filled, batch, gindex, config,
+                                   dev)
+    cargs = sam_columns.cigar_args(t, host, config)
+    cig = sam_cuda.sam_cigar(*cargs)
+    dargs = sam_columns.diff_args(t, cig)
+    cigar_ms = cuda_ms(lambda: sam_cuda.sam_cigar(*cargs), 3)
+    diff_ms = cuda_ms(lambda: sam_cuda.sam_diff(*dargs), 5)
+    out = {k: cig[k].cpu().numpy() for k in SAM_KEYS}
+    cells, _ = sam_cigar_work(
+        {"lengths": host["lengths"], "read_id": host["read_id"],
+         "rc": host["rc"]}, host["wlen"], host["ref_start"], out, [])
+    return {"alignments": len(overlaps), "sam_cigar_ms": cigar_ms,
+            "sam_diff_ms": diff_ms, "pass_cells": cells}
+
+
+def check_sam_columns(kept, sam_path: str, sample: int = 20000,
+                      seed: int = 0):
+    """Holds a SAM run's kernel columns to the host versions: sam_cigar's
+    to native.ssw_cigar_batch on every alignment; sam_diff's CIGAR, MD,
+    NM and prob to the copied get_cigar_and_md on >= `sample` alignments
+    (every one with an indel or a soft clip, the rest drawn); and the SAM
+    lines of those alignments' reads to the copied _fill_cigars +
+    write_sam_pairs.  Returns the counts checked."""
+    import copy
+    import io
+    from kslam_tpu_torch.io import native, sam as sam_io, sam_columns
+    from kslam_tpu_torch.pipeline import run as run_mod
+    rng = np.random.default_rng(seed)
+    counts = collections.Counter()
+    picked_reads = []
+    for (args, diffs), cig, (wargs, _) in zip(kept["diffs"], kept["cigar"],
+                                             kept["write"]):
+        overlaps, filled, batch, gindex, config, _ = args
+        cols = sam_columns._columns(overlaps)
+        t0 = time.perf_counter()
+        nat = native.ssw_cigar_batch(
+            batch.bases, batch.lengths, gindex.bases_concat,
+            gindex.entry_offsets.astype(np.int64), cols["read_id"],
+            cols["entry_id"], cols["rel_pos"], cols["rc"], config.sw,
+            score_filter=config.score_threshold)
+        nat_s = time.perf_counter() - t0
+        got = {k: cig[k].cpu().numpy() for k in SAM_KEYS}
+        width = int(max(nat["cigar_len"].max(), 0))
+        buf = cig["cigar_buf"][:, :width].cpu().numpy()
+        live = np.arange(width)[None, :] < nat["cigar_len"][:, None]
+        same = all(np.array_equal(got[k], nat[k]) for k in SAM_KEYS) and \
+            np.array_equal(np.where(live, buf, 0),
+                           np.where(live, nat["cigar_buf"][:, :width], 0))
+        log(f"  SAM run's sam_cigar columns vs native.ssw_cigar_batch on "
+            f"all {len(overlaps)} alignments ({nat_s:.2f} s on the host): "
+            f"equal {same}")
+        if not same:
+            raise AssertionError("the run's cigars differ from the native "
+                                 "call's")
+        counts["native"] += len(overlaps)
+        timing = time_run_kernels(overlaps, filled, batch, gindex, config)
+        log(f"  sam_cigar and sam_diff on this run's {len(overlaps)} "
+            f"alignments (CUDA events): sam_cigar "
+            f"{timing['sam_cigar_ms']:.4f} ms "
+            f"({timing['pass_cells'] / timing['sam_cigar_ms'] / 1e6:.1f} "
+            f"GCUPS over the forward and reverse passes' "
+            f"{timing['pass_cells']} cells), sam_diff "
+            f"{timing['sam_diff_ms']:.4f} ms")
+        counts["timed"] += 1
+        RUN_TIMES.append(timing)
+        ops = np.where(live, nat["cigar_buf"][:, :width] & 15, 0)
+        indel = (ops == 1).any(1) | (ops == 2).any(1)
+        m = batch.lengths[cols["read_id"]]
+        clipped = (cols["query_begin"] > 0) | \
+            (m - cols["query_end"] - 1 > 0)
+        must = np.flatnonzero(indel | clipped)
+        rest = np.setdiff1d(np.arange(len(overlaps)), must)
+        extra = rng.choice(rest, min(len(rest), max(sample - len(must), 0)),
+                           replace=False)
+        pick = np.sort(np.concatenate([must, extra]))
+        t0 = time.perf_counter()
+        bad = 0
+        for k in pick.tolist():
+            o = copy.copy(overlaps[k])
+            c = native.unpack_cigar(nat["cigar_buf"][k],
+                                    nat["cigar_len"][k])
+            o.cigar = (c if c is not None else []) if filled[k] else None
+            d = sam_io.get_cigar_and_md(
+                o, batch.base_string(o.read_id),
+                batch.quality_string(o.read_id),
+                gindex.entries[o.entry_id].bases)
+            bad += (d.cigar, d.md, d.nm, 10.0 ** d.log_probability) != \
+                (diffs[0][k], diffs[1][k], diffs[2][k], diffs[3][k])
+        log(f"  SAM run's sam_diff columns vs the copied get_cigar_and_md "
+            f"on {len(pick)} alignments ({int(indel[pick].sum())} with an "
+            f"indel, {int(clipped[pick].sum())} soft-clipped, "
+            f"{int(cols['rc'][pick].sum())} rc; "
+            f"{time.perf_counter() - t0:.1f} s on the host): {bad} differ")
+        if bad or len(pick) < min(sample, len(overlaps)):
+            raise AssertionError(f"{bad} SAM diffs differ from the walk")
+        counts["walk"] += len(pick)
+        counts["indel"] += int(indel[pick].sum())
+        counts["clipped"] += int(clipped[pick].sum())
+        counts["rc"] += int(cols["rc"][pick].sum())
+        chosen = {id(overlaps[k]) for k in pick.tolist()}
+        picked_reads.append((batch, gindex, config, [
+            read for read in wargs[1] if any(
+                id(o) in chosen for p in read.pairs for o in (p.r1, p.r2))]))
+    # the lines of those reads: the run's file against the copied writer
+    lines = collections.defaultdict(list)
+    with open(sam_path) as fh:
+        for line in fh:
+            if not line.startswith("@"):
+                lines[line.split("\t", 1)[0]].append(line)
+    t0 = time.perf_counter()
+    differ = n_reads = 0
+    for batch, gindex, config, reads in picked_reads:
+        mine = copy.deepcopy(reads)
+        run_mod._fill_cigars(mine, batch, gindex, config)
+        for read in mine:
+            text = io.StringIO()
+            sam_io.write_sam_pairs(text, read, batch, gindex, config)
+            differ += text.getvalue().splitlines(keepends=True) != \
+                lines[batch.names[read.r1_pos]]
+        n_reads += len(mine)
+    log(f"  SAM lines of those {n_reads} reads vs the copied _fill_cigars "
+        f"+ write_sam_pairs ({time.perf_counter() - t0:.1f} s): {differ} "
+        f"reads differ")
+    if differ or not n_reads:
+        raise AssertionError(f"{differ} reads' SAM lines differ from the "
+                             f"copied writer's")
+    counts["reads"] = n_reads
+    return dict(counts)
+
+
 def phase_sam(ctx, tmp: str):
-    """--sam-file at real size; returns the SW launch count of the run."""
+    """--sam-file at real size; returns the SW launch count of the run
+    and the SAM kernels' launches."""
     from kslam_tpu_torch.ops import sw_cuda
     from kslam_tpu_torch.utils import metrics
     metrics.reset()
@@ -1546,10 +2019,22 @@ def phase_sam(ctx, tmp: str):
     sw_cuda.LAUNCHES = sw_cuda.ALIGN_LAUNCHES = 0
     zero_join_launches()
     out = os.path.join(tmp, "real_sam")
-    wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
-                   ["--sam-file", out + ".sam"])
+    kept, host_calls, restore = watch_sam_path()
+    zero_sam_launches()
+    try:
+        wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
+                       ["--sam-file", out + ".sam"])
+    finally:
+        restore()
+    sam_k = sam_launches()
     launches, fused = sw_cuda.LAUNCHES, sw_cuda.ALIGN_LAUNCHES
     check_join("the SAM path", join_launches(), "sector_join", path="sam")
+    check_sam("the SAM path", sam_k, path="sam")
+    log(f"  host versions called on the card's SAM path: "
+        f"{dict(host_calls)}")
+    if any(host_calls.values()):
+        raise AssertionError(f"the SAM path on the card called host "
+                             f"versions: {dict(host_calls)}")
     peak = torch.cuda.max_memory_allocated()
     stages = metrics.summary()
     load_line("SAM run", stages, peak)
@@ -1581,10 +2066,26 @@ def phase_sam(ctx, tmp: str):
         f"{launches}")
     log(f"  R1 primary lines on the planted genome within 5 of the "
         f"planted position: {hits}/{len(g)} ({frac:.4%})")
+    sam_s = stages.get("sam_output", {}).get("seconds", 0.0)
+    split = {k: stages.get(k, {}).get("seconds", 0.0)
+             for k in ("sam_collect", "sam_diffs", "sam_windows",
+                       "sam_upload", "sam_kernels", "sam_relaunch",
+                       "sam_texts", "sam_lines")}
+    log(f"  sam_output {sam_s:.3f} s (before the SAM kernels, cigars by "
+        f"the native host call and the Python walk: 48.783 s; NVIDIA "
+        f"H100 80GB HBM3, "
+        f"700.00 W): {json.dumps(split)} (sam_diffs is sam_windows + "
+        f"sam_upload + sam_kernels (both kernels and the fetch) + "
+        f"sam_relaunch + sam_texts); without it the run takes "
+        f"{wall - sam_s:.2f} s")
     if frac < 0.99:
         raise AssertionError(f"only {frac:.4%} of SAM lines placed right")
     check_fused("the SAM path", launches, fused)
-    return launches
+    ctx["sam_checked"] = check_sam_columns(kept, out + ".sam")
+    del kept
+    ctx["sam"] = out + ".sam"
+    ctx["sam_output_s"] = dict(split, sam_output=sam_s)
+    return launches, sam_k
 
 
 def phase_host_path(ctx, tmp: str, n_pairs: int):
@@ -1687,6 +2188,42 @@ def phase_mesh(ctx, tmp: str, shape: str = "2x2", expect=None):
     del sdb, kidx, bases
     check_fused("the mesh path", launches, fused, expect)
     return launches, fused, cells
+
+
+def phase_mesh_sam(ctx, tmp: str, shape: str = "2x2"):
+    """Phase 8's --mesh SHAPE --shard-genomes run again with --sam-file:
+    its cards hold only their shards' genome rows, so the SAM kernels take
+    windows gathered on the host.  Its SAM must equal phase 6's and its
+    other outputs phase 5's."""
+    from kslam_tpu_torch.utils import metrics
+    metrics.reset()
+    zero_join_launches()
+    zero_sam_launches()
+    out = os.path.join(tmp, f"real_mesh_{shape}_sam")
+    wall = run_cli(ctx["db"], out, ctx["r1"], ctx["r2"], "cuda",
+                   ["--mesh", shape, "--shard-genomes", "--sam-file",
+                    out + ".sam"])
+    check_join("the mesh SAM path", join_launches(), "window_join",
+               path=f"mesh_{shape}_shard_genomes_sam")
+    check_sam("the mesh SAM path", sam_launches(),
+              path=f"mesh_{shape}_shard_genomes_sam")
+    stages = metrics.summary()
+    same = read_outputs(out, sam=False) == read_outputs(ctx["out"],
+                                                         sam=False)
+    same_sam = read_outputs(out, sam=True)[0] == \
+        read_outputs(ctx["sam"][:-len(".sam")], sam=True)[0]
+    sec = {k: stages[k]["seconds"] for k in (
+        "db_load", "shard_placement", "to_host_pairs", "sam_output",
+        "sam_collect", "sam_diffs", "sam_windows", "sam_upload",
+        "sam_kernels", "sam_relaunch", "sam_texts", "sam_lines")
+        if k in stages}
+    log(f"  mesh {shape} SAM run: CLI wall {wall:.2f} s; stage seconds "
+        f"{json.dumps(sec)}")
+    log(f"  SAM (without @PG) byte-identical to phase 6's: {same_sam}; "
+        f"XML, _PerRead, _abbreviated byte-identical to phase 5: {same}")
+    if not (same and same_sam):
+        raise AssertionError("the mesh SAM run's outputs differ from "
+                             "phases 5 and 6")
 
 
 def check_shards(name: str, sdb, kidx, bases, offsets, num_shards: int,
@@ -2934,8 +3471,8 @@ def main() -> int:
         host_build = pool.submit(native.get_lib)
         lib_path = cuda_build.result()._name
         host_lib = host_build.result()
-    log(f"phase 2 build: the CUDA kernel library (SW and join kernels, one "
-        f"nvcc per source) and the native host library built in "
+    log(f"phase 2 build: the CUDA kernel library (SW, join and SAM kernels, "
+        f"one nvcc per source) and the native host library built in "
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for func, info in ptxas_report(cuda_lib.BUILD_LOG):
         log(f"  ptxas: {func}: {info}")
@@ -2961,6 +3498,8 @@ def main() -> int:
     # generators of their own: phases 4-5 draw their data from rng alone
     align = phase_align(np.random.default_rng(args.seed + 1), dev)
     phase_join_kernels(np.random.default_rng(args.seed + 2), dev)
+    sam_cigar_line, sam_diff_line = phase_sam_kernels(
+        np.random.default_rng(args.seed + 3), dev)
     # the fused launches of the 1.6 Gbp runs: one per batch of 32,768
     # candidates
     expect = 4 if (args.mbp, args.pairs) == (1600, 131072) else None
@@ -2972,7 +3511,7 @@ def main() -> int:
         launches, fused, cells, ctx = phase_real(rng, tmp, args.mbp,
                                                  args.pairs, expect)
         log(f"phase 6 real-size SAM: {args.pairs} pairs")
-        sam_launches = phase_sam(ctx, tmp)
+        sam_launches, sam_kernel_launches = phase_sam(ctx, tmp)
         log(f"phase 7 host-object path (--device-pipeline off): "
             f"{args.host_pairs} pairs")
         if args.host_pairs < args.pairs:
@@ -2980,10 +3519,14 @@ def main() -> int:
                 f"(the host-object pairing is Python)")
         _, align_launches = phase_host_path(
             ctx, tmp, min(args.host_pairs, args.pairs))
+        ctx_sam_output, ctx_checked = ctx["sam_output_s"], ctx["sam_checked"]
         log(f"phase 8 real-size mesh (--mesh 2x2 --shard-genomes): "
             f"{args.pairs} pairs")
         mesh_launches, mesh_fused, mesh_cells = phase_mesh(ctx, tmp,
                                                            expect=expect)
+        log(f"phase 8 real-size mesh SAM (--mesh 2x2 --shard-genomes "
+            f"--sam-file): {args.pairs} pairs")
+        phase_mesh_sam(ctx, tmp)
         # 4 chunks at any --pairs, so that the depths can differ
         chunk_pairs = max(args.pairs // 4, 1)
         log(f"phase 9 chunk pipeline: {args.pairs} pairs in chunks of "
@@ -3036,6 +3579,14 @@ def main() -> int:
         "shape": "B=32768 Lq=Lr=160 (flat window)",
         "chunked": chunked, "library_ms": None}]}
     kernels["kernels"] += join_kernel_entries(joins)
+    for line in (sam_cigar_line, sam_diff_line):
+        kernel = line["name"]
+        kernels["kernels"].append(dict(
+            line, launches=sam_kernel_launches[kernel],
+            launches_by_path={p: v[kernel] for p, v in SAM_PATHS.items()},
+            phase6_ms=[t[f"{kernel}_ms"] for t in RUN_TIMES],
+            phase6_alignments=[t["alignments"] for t in RUN_TIMES],
+            sam_output_s=ctx_sam_output, checked=ctx_checked))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -117,8 +117,9 @@ def metagenomic_analysis_distributed(r1_path: str, r2_path: Optional[str],
     from ..io.fastq import stream_read_batches
     from ..ops.sw import check_params
     from ..pipeline import align, classify
-    from ..pipeline.run import (_fill_cigars, chunk_objects, device_tables,
-                                process_batch, process_chunk)
+    from ..io import sam_columns
+    from ..pipeline.run import (chunk_objects, device_tables, process_batch,
+                                process_chunk)
     from . import dist
 
     pid, nproc = tdist.get_rank(), tdist.get_world_size()
@@ -184,10 +185,8 @@ def metagenomic_analysis_distributed(r1_path: str, r2_path: Optional[str],
             else:
                 reads_and_pairs = process_batch(batch, db, config)
             if sam_file:
-                _fill_cigars(reads_and_pairs, batch, gindex, config)
-                for read in reads_and_pairs:
-                    sam_io.write_sam_pairs(sam_file, read, batch, gindex,
-                                           config)
+                sam_columns.write_sam(sam_file, reads_and_pairs, batch,
+                                      gindex, config, device)
             if not config.just_align:
                 if columnar:
                     identified.append(

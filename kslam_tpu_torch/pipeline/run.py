@@ -21,7 +21,9 @@ device:
 On the device pipeline, ChunkPipeline overlaps the next chunk's parse
 and packing and the last chunk's host tail with a chunk's device work
 (depth 3; --no-chunk-overlap runs one chunk at a time, depth 1).  SAM
-lines are written per chunk, in chunk order; the per-read TSV, the
+lines are written per chunk, in chunk order, on either path from
+columns (io/sam_columns.py: the cigars and diffs by ops/sam_cuda.py's
+kernels on the run's device); the per-read TSV, the
 combined XML and the abbreviated TSV at the end (not with
 --just-align).  --resume continues an interrupted run from its chunk
 checkpoint (pipeline/checkpoint.py).
@@ -42,7 +44,7 @@ from ..config import PipelineConfig
 from ..db.genbank import GenbankIndex
 from ..db.kmer_index import KmerIndex
 from ..db.taxonomy import TaxonomyDB
-from ..io import sam as sam_io
+from ..io import sam as sam_io, sam_columns
 from ..io import xml_results
 from ..io.fastq import ReadBatch, stream_read_batches
 from ..ops import encode, lca as lca_ops, screen as screen_ops
@@ -267,7 +269,8 @@ class ChunkPipeline:
     (--no-chunk-overlap), which runs the same stages one after another
     on the calling thread and starts no thread.  Stages that launch
     device work (the host screen, the flagging) share the card's stream
-    with the calling thread.  An error on any thread reaches the caller:
+    with the calling thread; the tail's SAM kernels run on a stream of
+    their own (io/sam_columns.py).  An error on any thread reaches the caller:
     on the way out the pipeline finishes the tails of the chunks already
     fed, joins both threads, and raises the first error in chunk order.
 
@@ -536,10 +539,8 @@ def metagenomic_analysis(r1_path: str, r2_path: Optional[str],
         if sam_file:
             log("Writing SAM output")
             with metrics.stage("sam_output"):
-                _fill_cigars(reads_and_pairs, batch, gindex, config)
-                for read in reads_and_pairs:
-                    sam_io.write_sam_pairs(sam_file, read, batch, gindex,
-                                           config)
+                sam_columns.write_sam(sam_file, reads_and_pairs, batch,
+                                      gindex, config, device)
         chunks_done += 1
         new_identified = []
         if not config.just_align:

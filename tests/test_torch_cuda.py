@@ -9,7 +9,8 @@ DB's columns derived on the card (db/device_columns.py) against the host
 versions bit for bit, and the join's four backends (sector table, bucket table, prefix window,
 exact search) against each other on CUDA,
 the sharded phase A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
-against the CPU, and the CUDA CLI runs (classification and SAM, and
+against the CPU, the SAM path's sam_cigar and sam_diff kernels against
+their plain versions, and the CUDA CLI runs (classification and SAM, and
 over four chunks at both chunk-pipeline depths) against the CPU ones.
 They import neither jax nor kslam_tpu, so they run on the card's
 machine with
@@ -31,10 +32,10 @@ from kslam_tpu_torch.db.genbank import GenbankEntry, GenbankIndex
 from kslam_tpu_torch.db.host_table import HostTable
 from kslam_tpu_torch.db.kmer_index import KmerIndex, join_columns
 from kslam_tpu_torch.db.taxonomy import TaxonomyDB
-from kslam_tpu_torch.eval import join_cases
+from kslam_tpu_torch.eval import join_cases, sam_cases
 from kslam_tpu_torch.eval.sw_windows import n_windows
 from kslam_tpu_torch.ops import encode, join, join_cuda, kmers, match, \
-    screen, screens_dev, sw, sw_cuda
+    sam_cuda, screen, screens_dev, sw, sw_cuda
 from kslam_tpu_torch.parallel import dist
 
 torch.set_num_threads(1)
@@ -986,3 +987,68 @@ def test_device_columns_on_card(cuda_device, monkeypatch, stage_bytes):
         sw.genome_chunks_from_scodes(encode.sw_codes_np(bases)))
     np.testing.assert_array_equal(flat.cpu().numpy(),
                                   encode.sw_codes_np(bases))
+
+
+def _sam_columns(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    c = sam_cases.alignments(rng, sam_cases.entries(rng), n)
+    return c, rng
+
+
+SW_DEFAULT = (2, 3, 5, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(8, 32, 64), (1, 2, 3)],
+                         ids=["default", "tiny_caps"])
+def test_sam_kernels_match_plain(cuda_device, monkeypatch, caps):
+    """sam_cigar and sam_diff on the card equal their plain versions on
+    a synthetic mix of 4,096 alignments (forward and rc,
+    indels, entry-end windows, N, lowercase); with tiny caps most rows
+    take sam_cigar's relaunch, and sam_diff's texts need more than their
+    caps (the lengths they report say so)."""
+    w_cap, ops_cap, text_cap = caps
+    monkeypatch.setattr(sam_cuda, "W_CAP", w_cap)
+    monkeypatch.setattr(sam_cuda, "OPS_CAP", ops_cap)
+    c, rng = _sam_columns(4096, 31)
+    max_ops = sam_cuda.native_max_ops(c["lengths"])
+    before = dict(sam_cuda.SAM_LAUNCHES)
+    got = sam_cuda.sam_cigar(*sam_cases.cigar_operands(c, cuda_device),
+                             SW_DEFAULT, 0, max_ops)
+    assert sam_cuda.SAM_LAUNCHES["sam_cigar"] >= before["sam_cigar"] + 1
+    want = sam_cuda.sam_cigar(*sam_cases.cigar_operands(c, "cpu"),
+                              SW_DEFAULT, 0, max_ops)
+    for k in ("score", "ref_begin", "ref_end", "query_begin", "query_end",
+              "cigar_len"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    width = int(want["cigar_len"].max())
+    assert got["cigar_buf"].shape[1] >= width
+    assert torch.equal(got["cigar_buf"][:, :width].cpu(),
+                       want["cigar_buf"][:, :width])
+    rb, qb, qe = sam_cases.phase_a_ends(
+        rng, want["ref_begin"].numpy(), want["query_begin"].numpy(),
+        want["query_end"].numpy(), c["lengths"])
+    buf = want["cigar_buf"][:, :max(width, 1)].numpy()
+    cl = want["cigar_len"].numpy().copy()
+    cl[::97] = sam_cuda.NO_CIGAR
+    outs = [sam_cuda.sam_diff(*sam_cases.diff_operands(
+        c, buf, cl, rb, qb, qe, dev), text_cap, text_cap)
+        for dev in (cuda_device, "cpu")]
+    assert sam_cuda.SAM_LAUNCHES["sam_diff"] >= before["sam_diff"] + 1
+    for k in outs[1]:
+        assert torch.equal(outs[0][k].cpu(), outs[1][k]), k
+    if text_cap < 64:
+        assert (outs[1]["md_n"] > text_cap).any()
+
+
+@pytest.mark.cuda
+def test_sam_cigar_raises_past_relaunch(cuda_device, monkeypatch):
+    """A band that outgrows the relaunch's slab too raises: no row is
+    handed on still flagged (sam_diff would read it as no cigar)."""
+    monkeypatch.setattr(sam_cuda, "W_CAP", 1)
+    monkeypatch.setattr(sam_cuda, "relaunch_width", lambda qmax: 1)
+    c, _ = _sam_columns(512, 37)
+    with pytest.raises(RuntimeError, match="outgrew the relaunch"):
+        sam_cuda.sam_cigar(*sam_cases.cigar_operands(c, cuda_device),
+                           SW_DEFAULT, 0, sam_cuda.native_max_ops(
+                               c["lengths"]))
