@@ -60,11 +60,20 @@ Phases (each prints its own line; any failure exits non-zero):
      before its start, 5% with N, lowercase or a short length; phase A's
      ends moved for a tenth): sam_cigar equal to its plain version on
      the card's tensors and to native.ssw_cigar_batch on the host,
-     sam_diff equal to its plain version; each timed in turns (plain,
-     kernel, kernel, plain) with its bound: sam_cigar's DP cells (the
-     forward and reverse passes, the banded DP's attempts) at 8.5 int32
-     instructions a cell over the SMs' dispatch rate, sam_diff's bytes
-     at 3.35 TB/s.
+     sam_diff equal to its plain version, both again on 8,192 alignments
+     on tandem repeats (the tie-break decides every end); each timed in
+     turns (plain, kernel, kernel, plain) with its bound: sam_cigar's DP
+     cells (the forward and reverse passes, the banded DP's attempts) at
+     8.5 int32 instructions a cell over the SMs' dispatch rate,
+     sam_diff's bytes at 3.35 TB/s beside the floor of its serial
+     float64 chain (the longest walk x the add's latency, measured by a
+     clock64 probe this script builds, x rounds of the alignments the
+     kernel's occupancy holds in flight); sam_cigar's time split by
+     torch.profiler between its passes kernel and its band kernel (the
+     first launch and the relaunch; listed as sam_band, with its own
+     plain time and bound); and sam_cigar_long, the path for reads past
+     the group kernel's key, on 256 reads of 1,100 bases: launched,
+     equal to its plain version, timed in turns.
   4. cuda vs cpu: a small FASTA DB, taxonomy and paired FASTQ made from
      --seed, run by the port's CLI on cuda and on cpu: classification;
      --sam-file on paired reads; --just-align --sam-file on single-end
@@ -80,7 +89,7 @@ Phases (each prints its own line; any failure exits non-zero):
      DeviceDB builds at load; window_join on a mesh and with
      --no-prefix-rows) and launch no other; the cpu runs launch none.
      Every SAM run on the card (here, in phase 6 and phase 8) must
-     launch sam_cigar and sam_diff, the cpu runs neither.
+     launch sam_cigar and sam_diff, the cpu runs no SAM kernel.
   5. real size: the 1.6 Gbp synthetic DB of the reference package's
      bench (16 genomes x 100 Mbp, ~1e8 stride-16 index k-mers) and
      262,144 planted 150 bp reads (131,072 pairs, 1% mutations) through
@@ -102,7 +111,7 @@ Phases (each prints its own line; any failure exits non-zero):
   6. real-size SAM: phase 5's DB and reads with --sam-file on cuda;
      >= 99% of the planted pairs must have their R1 primary line on the
      planted genome within 5 of the planted position.  The run must
-     launch sam_cigar and sam_diff (counts reset just before it, read
+     launch sam_cigar, sam_band and sam_diff (counts reset just before it, read
      just after) and call none of native.ssw_cigar_batch,
      compute_cigars_batch, get_cigar_and_md or the kernels' plain
      versions; prints sam_output beside the host cigars' 48.783 s.
@@ -665,6 +674,18 @@ def sam_cigar_work(c, win_len, ref_start, out, bands):
     return cells, nbytes
 
 
+def band_cells_and_bytes(c, bands, cigar_len):
+    """(cells, bytes) sam_cigar's band kernel needs on these alignments:
+    the banded DP's attempts (from the plain version's bands); the
+    sub-reads and sub-windows, the SW code table and the columns it reads
+    (score, four ends, read_id, rc, ref_start, wlen, the read's length)
+    in, cigar_len and the runs out, each once."""
+    cells = sum(band_cells(r, f, w0, w1) for r, f, w0, w1 in bands)
+    sub = sum(int(r.sum()) + int(f.sum()) for r, f, _, _ in bands)
+    runs = np.clip(cigar_len, 0, None).astype(np.int64)
+    return cells, sub + 256 + 44 * len(c["read_id"]) + 4 * int(runs.sum())
+
+
 def sam_diff_bytes(c, out, dlen, cigar_len) -> int:
     """Bytes sam_diff needs on these alignments, each once: the reads and
     qualities, the window bytes its walks read, the columns and runs in;
@@ -702,14 +723,136 @@ def turns(plain_ms: float, plain, kernel, iters: int):
     return (plain_ms + p2) / 2, (k1 + k2) / 2, [plain_ms, k1, k2, p2]
 
 
+def cigar_columns_equal(got, want) -> bool:
+    """sam_cigar's columns and live runs equal between two results."""
+    width = int(want["cigar_len"].max())
+    return all(torch.equal(got[k].cpu(), want[k].cpu()) for k in SAM_KEYS) \
+        and torch.equal(got["cigar_buf"][:, :width].cpu(),
+                        want["cigar_buf"][:, :width].cpu())
+
+
+DADD_PROBE = r"""
+extern "C" __global__ void dadd_chain(long long* cycles, double* x, int n) {
+  double v = x[0];
+  const double d = x[1];
+  const long long t0 = clock64();
+  for (int i = 0; i < n; ++i) v = __dadd_rn(v, d);
+  const long long t1 = clock64();
+  x[2] = v;
+  cycles[0] = t1 - t0;
+}
+extern "C" int dadd_cycles(long long* cycles, double* x, int n) {
+  dadd_chain<<<1, 1>>>(cycles, x, n);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def dadd_latency_cycles(n: int = 1 << 16) -> float:
+    """Cycles of one dependent float64 add on this card: one thread, a
+    chain of n __dadd_rn timed by clock64 (DADD_PROBE, built here with
+    nvcc into a temporary directory)."""
+    import ctypes
+    import shutil
+    from torch.utils.cpp_extension import CUDA_HOME
+    tmp = tempfile.mkdtemp(prefix="kslam_dadd_")
+    try:
+        src, lib = os.path.join(tmp, "dadd.cu"), os.path.join(tmp, "dadd.so")
+        with open(src, "w") as fh:
+            fh.write(DADD_PROBE)
+        subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                        "-Xcompiler", "-fPIC", src, "-o", lib],
+                       check=True, capture_output=True, timeout=300)
+        probe = ctypes.CDLL(lib)
+        dev = torch.device("cuda")
+        cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+        x = torch.tensor([1.0, 1e-9, 0.0], dtype=torch.float64, device=dev)
+        torch.cuda.synchronize()
+        for _ in range(2):                  # the second call: a warm clock
+            err = probe.dadd_cycles(ctypes.c_void_p(cycles.data_ptr()),
+                                    ctypes.c_void_p(x.data_ptr()),
+                                    ctypes.c_int(n))
+            if err:
+                raise RuntimeError(f"dadd probe failed: cudaError {err}")
+        return int(cycles.item()) / n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def diff_in_flight(stride: int, dwin_stride: int, cap: int) -> int:
+    """The alignments sam_diff holds in flight on the card: one lane
+    each, a warp a block, its blocks resident on each SM as its shared
+    memory (csrc/sam.cu's kslam_sam_diff: the tables, the text lengths,
+    the queued MD calls, then a slot a lane) and its registers (ptxas's,
+    from this run's build) allow."""
+    from kslam_tpu_torch.ops import cuda_lib
+    r16 = lambda v: -(-v // 16) * 16            # noqa: E731
+    slot = 2 * r16(min(stride, 1024)) + r16(min(dwin_stride, 1024)) + \
+        2 * r16(min(cap, 256))
+    smem = 2 * 100 * 8 + 256 + 2 * 32 * 4 + 32 * 32 * 4 + 32 * slot
+    regs = [int(m.group(1)) for f, info in ptxas_report(cuda_lib.BUILD_LOG)
+            if "sam_diff_kernel" in f
+            for m in [re.search(r"Used (\d+) registers", info)] if m]
+    per_warp = -(-(regs[0] if regs else 0) * 32 // 256) * 256
+    blocks = min(32, 64, 233472 // (smem + 1024),
+                 65536 // per_warp if per_warp else 64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * blocks * 32
+
+
+def kernel_device_ms(fn, iters: int) -> dict:
+    """Mean device ms a call of fn() of each CUDA kernel it launches, by
+    name: the kernels' own intervals in a torch.profiler trace of iters
+    calls (after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory(prefix="kslam_prof_") as tmp:
+        trace = os.path.join(tmp, "calls.trace.json")
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        with open(trace) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    out = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] += e.get("dur", 0) / 1e3 / iters
+    if not out:
+        raise AssertionError("the profiler's trace holds no CUDA kernel")
+    return dict(out)
+
+
+def named_ms(times: dict, part: str) -> float:
+    """The ms of the kernels whose names hold `part`."""
+    return sum(v for k, v in times.items() if part in k)
+
+
+def walk_bases(cigar_buf, cigar_len) -> np.ndarray:
+    """The M bases of each alignment's walk: the terms of its float64
+    chain (numpy)."""
+    width = max(int(cigar_len.max()), 1)
+    runs = np.asarray(cigar_buf)[:, :width].astype(np.int64)
+    live = np.arange(width)[None, :] < np.asarray(cigar_len)[:, None]
+    return np.where(live & ((runs & 15) == 0), runs >> 4, 0).sum(1)
+
+
 def phase_sam_kernels(rng, dev, n: int = 32768):
     """sam_cigar and sam_diff on a synthetic mix of n alignments
     (eval/sam_cases: forward and rc, 30% with indels, 5% with a
     shifted middle, 5% at an entry's end or before its start, 5% with N,
     lowercase or a short length; phase A's ends moved for a tenth):
     each equal to its plain version on the card's tensors, sam_cigar
-    also to the native host call; timed in turns.  Returns their kernels
-    line numbers."""
+    also to the native host call; both again on the tie-heavy tandem
+    mix; timed in turns, sam_cigar's time split by torch.profiler
+    between its passes kernel and its band kernel (sam_band's line);
+    sam_diff's serial float64 floor beside its bytes bound;
+    sam_cigar_long on reads of 1,100 bases.  Returns their kernels line
+    entries."""
     from kslam_tpu_torch.config import SWParams
     from kslam_tpu_torch.eval import sam_cases
     from kslam_tpu_torch.io import native
@@ -721,13 +864,24 @@ def phase_sam_kernels(rng, dev, n: int = 32768):
     log(f"  SAM alignments: {n} drawn in {time.perf_counter() - t0:.1f} s "
         f"({int(c['rc'].sum())} rc, {int((c['rel_pos'] < 0).sum())} with "
         f"rel_pos < 0)")
+    stride, width = ops[0].shape[1], ops[4].shape[1]
+    cfg = sam_cuda.cigar_config(n, stride, width)
+    log(f"  sam_cigar passes launch: {cfg}; band kernel: 8 lanes an "
+        f"alignment, region {sam_cuda.band_region(stride, sam_cuda.W_CAP)}"
+        f" B (W_CAP {sam_cuda.W_CAP}); group kernels take the batch: "
+        f"{sam_cuda.takes_group(stride, width, SW_DEFAULT)}")
     got = sam_cuda.sam_cigar(*ops, SW_DEFAULT, 0, max_ops)
     torch.cuda.synchronize()
     bands = []
+    band_plain_s = []
     real = sam_cuda.banded_cigar_plain
 
     def record(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         res = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        band_plain_s.append(time.perf_counter() - t)
         bands.append(tuple(x.cpu().numpy() for x in
                            (args[1], args[3], args[5], res[2])))
         return res
@@ -745,8 +899,7 @@ def phase_sam_kernels(rng, dev, n: int = 32768):
                                  c["rel_pos"], c["rc"],
                                  SWParams(), score_filter=0)
     gbuf = got["cigar_buf"][:, :width].cpu().numpy()
-    same_plain = all(np.array_equal(g[k], p[k]) for k in SAM_KEYS) and \
-        np.array_equal(gbuf, plain["cigar_buf"][:, :width].cpu().numpy())
+    same_plain = cigar_columns_equal(got, plain)
     nbuf = np.where(np.arange(width)[None, :] < nat["cigar_len"][:, None],
                     nat["cigar_buf"][:, :width], 0)
     same_native = all(np.array_equal(g[k], nat[k]) for k in SAM_KEYS) and \
@@ -764,7 +917,8 @@ def phase_sam_kernels(rng, dev, n: int = 32768):
         f"{same_native}; runs up to {width}, aborted "
         f"{int((runs == sam_cuda.ABORTED).sum())}, bands doubled at least "
         f"twice {int((w_final >= 4 * np.maximum(w_first, 1)).sum())}, "
-        f"wider than the first slab (W_CAP {sam_cuda.W_CAP}) "
+        f"wider than the shared-memory region (W_CAP {sam_cuda.W_CAP}: "
+        f"relaunched with a device slab) "
         f"{int((w_final > sam_cuda.W_CAP).sum())}")
     if not (same_plain and same_native):
         raise AssertionError("sam_cigar differs from its plain version or "
@@ -785,6 +939,27 @@ def phase_sam_kernels(rng, dev, n: int = 32768):
         f"{int(dg['md_n'].max())} B (cap {sam_cuda.TEXT_CAP})")
     if not same_diff:
         raise AssertionError("sam_diff differs from its plain version")
+    # the tie-heavy mix: tandem repeats, the tie-break decides every end
+    tc = sam_cases.tandem_alignments(rng, 8192)
+    tmax = sam_cuda.native_max_ops(tc["lengths"])
+    tops = sam_cases.cigar_operands(tc, dev)
+    tgot = sam_cuda.sam_cigar(*tops, SW_DEFAULT, 0, tmax)
+    tplain = sam_cuda.sam_cigar_plain(*tops, SW_DEFAULT, 0, tmax)
+    tbuf = tplain["cigar_buf"][:, :max(int(tplain["cigar_len"].max()), 1)]
+    tdops = sam_cases.diff_operands(
+        tc, tbuf.cpu().numpy(), tplain["cigar_len"].cpu().numpy(),
+        tplain["ref_begin"].cpu().numpy().astype(np.int64),
+        tplain["query_begin"].cpu().numpy(),
+        tplain["query_end"].cpu().numpy(), dev)
+    tdg, tdp = sam_cuda.sam_diff(*tdops), sam_cuda.sam_diff_plain(*tdops)
+    same_tie = cigar_columns_equal(tgot, tplain) and \
+        all(torch.equal(tdg[k], tdp[k]) for k in tdg)
+    log(f"  tie-heavy mix (8192 alignments on tandem repeats, max scores "
+        f"{int(tplain['score'].min())}..{int(tplain['score'].max())}): "
+        f"sam_cigar and sam_diff equal to their plain versions {same_tie}")
+    if not same_tie:
+        raise AssertionError("the SAM kernels differ from their plain "
+                             "versions on the tie-heavy mix")
     # timings, in turns
     win_len = ops[5].cpu().numpy()
     ref_start = ops[6].cpu().numpy()
@@ -799,6 +974,25 @@ def phase_sam_kernels(rng, dev, n: int = 32768):
         f"bound {bound_ms:.4f} ms ({bound_by}; {OPS_PER_CELL} int32 "
         f"instructions a cell), {bound_ms / ms:.2%} of it; plain "
         f"{plain_ms:.1f} ms")
+    # the split, from a profiler trace of the same call: the passes
+    # kernel, the band kernel (the first launch and the relaunch), and the
+    # rest of the wrapper's time (the nonzero's host sync, allocations)
+    split = kernel_device_ms(
+        lambda: sam_cuda.sam_cigar(*ops, SW_DEFAULT, 0, max_ops), 10)
+    pass_ms = named_ms(split, "sam_pass_kernel")
+    band_ms = named_ms(split, "sam_band_kernel")
+    pass_cells, _ = sam_cigar_work(c, win_len, ref_start, g, [])
+    pass_bound, _ = sw_bound(pass_cells, nbytes)
+    band_work = band_cells_and_bytes(c, bands, runs)
+    band_bound, band_by = sw_bound(*band_work)
+    band_plain_ms = sum(band_plain_s) * 1e3
+    log(f"  sam_cigar split (torch.profiler, 10 calls): the passes kernel "
+        f"{pass_ms:.4f} ms ({pass_cells} cells, {pass_bound / pass_ms:.2%}"
+        f" of their bound), the band kernel {band_ms:.4f} ms (first launch "
+        f"and relaunch: {band_work[0]} cells, bound {band_bound:.4f} ms, "
+        f"{band_bound / band_ms:.2%}; its plain part {band_plain_ms:.1f} ms)"
+        f", the rest of the wrapper's {ms:.4f} ms "
+        f"{ms - pass_ms - band_ms:.4f} ms; kernels {split}")
     cigar = {"name": "sam_cigar", "route": "cuda",
              "source": "kslam_tpu_torch/csrc/sam.cu",
              "replaces": "csrc/ssw_batch.cc:229 (kslam_ssw_cigar_batch, "
@@ -806,16 +1000,51 @@ def phase_sam_kernels(rng, dev, n: int = 32768):
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "bound_share": bound_ms / ms, "cells_needed": cells,
+             "passes_ms": pass_ms, "passes_bound_ms": pass_bound,
+             "launch": cfg._asdict(),
              "shape": f"{n} alignments, reads of 150 bp (stride 160)",
              "turns_ms": reads, "library_ms": None}
+    band = {"name": "sam_band", "route": "cuda",
+            "source": "kslam_tpu_torch/csrc/sam.cu",
+            "replaces": "csrc/ssw_batch.cc:104-200 (banded_cigar, host "
+                        "C++; no TPU kernel), inside sam_cigar",
+            "max_abs_err": err, "ms": band_ms, "plain_ms": band_plain_ms,
+            "bound_ms": band_bound, "bound_by": band_by,
+            "bound_share": band_bound / band_ms,
+            "cells_needed": band_work[0],
+            "timed_by": "torch.profiler, the band kernel's launches in 10 "
+                        "sam_cigar calls; plain: banded_cigar_plain's part "
+                        "of the plain sam_cigar call",
+            "shape": f"{n} alignments, reads of 150 bp (stride 160)",
+            "library_ms": None}
     dbytes = sam_diff_bytes(c, dg, dops[11].cpu().numpy(), cl)
     plain_ms, ms, reads = turns(diff_plain_ms,
                                 lambda: sam_cuda.sam_diff_plain(*dops),
                                 lambda: sam_cuda.sam_diff(*dops), 20)
     bound_ms = dbytes / MEMORY_BYTES_PER_S * 1e3
+    # the kernel's own device time inside the wrapper's (the rest: the
+    # wrapper's checks, allocations and fills)
+    diff_dev = kernel_device_ms(lambda: sam_cuda.sam_diff(*dops), 20)
+    diff_kernel_ms = named_ms(diff_dev, "sam_diff_kernel")
+    log(f"  sam_diff's kernel (torch.profiler, 20 calls): {diff_kernel_ms:.4f}"
+        f" ms of the wrapper's {ms:.4f} ms; every kernel of the call "
+        f"{diff_dev}")
+    # the serial float64 chain: one dependent add a walked M base, the
+    # longest walk on each of ceil(n / in flight) rounds
+    lat = dadd_latency_cycles()
+    walk = int(walk_bases(dops[8].cpu().numpy(), cl).max())
+    in_flight = diff_in_flight(dops[0].shape[1], dops[10].shape[1],
+                               sam_cuda.TEXT_CAP)
+    rounds = -(-n // in_flight)
+    chain_ms = rounds * walk * lat / (sm_clock_mhz() * 1e3)
+    binds = "bytes" if bound_ms >= chain_ms else "the float64 chain"
     log(f"  timing sam_diff ({n} alignments, in turns {reads} ms): kernel "
         f"{ms:.4f} ms; bound {bound_ms:.4f} ms (bytes: {dbytes} B at 3.35 "
-        f"TB/s), {bound_ms / ms:.2%} of it; plain {plain_ms:.1f} ms")
+        f"TB/s), {bound_ms / ms:.2%} of it; plain {plain_ms:.1f} ms; the "
+        f"float64 chain's floor {chain_ms:.5f} ms (longest walk {walk} "
+        f"adds x {lat:.2f} cycles (measured) x {rounds} rounds of at most "
+        f"{in_flight} alignments in flight (a lane each, the kernel's "
+        f"occupancy), at clocks.max.sm): {binds} binds")
     diff = {"name": "sam_diff", "route": "cuda",
             "source": "kslam_tpu_torch/csrc/sam.cu",
             "replaces": "kslam_tpu/io/sam.py:40 (get_cigar_and_md, host "
@@ -823,10 +1052,76 @@ def phase_sam_kernels(rng, dev, n: int = 32768):
             "max_abs_err": lp_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
             "bound_share": bound_ms / ms, "bytes_needed": dbytes,
+            "kernel_device_ms": diff_kernel_ms,
+            "chain_floor_ms": chain_ms, "dadd_cycles": lat,
+            "longest_walk": walk, "in_flight": in_flight, "binds": binds,
             "shape": f"{n} alignments, reads of 150 bp (stride 160)",
             "turns_ms": reads, "library_ms": None}
-    return cigar, diff
+    return cigar, band, diff, phase_sam_long(rng, dev)
 
+
+def phase_sam_long(rng, dev, n: int = 256, read_len: int = 1100):
+    """sam_cigar on reads past the group kernel's key (1,100 bases,
+    stride 1,104): the wrapper launches sam_cigar_long, equal to the plain
+    version; timed in turns.  Returns its kernels line numbers."""
+    from kslam_tpu_torch.eval import sam_cases
+    from kslam_tpu_torch.ops import sam_cuda
+    c = sam_cases.alignments(rng, sam_cases.entries(rng, 4, 100_000), n,
+                             read_len=read_len, stride=read_len + 4)
+    max_ops = sam_cuda.native_max_ops(c["lengths"])
+    ops = sam_cases.cigar_operands(c, dev)
+    if sam_cuda.takes_group(ops[0].shape[1], ops[4].shape[1], SW_DEFAULT):
+        raise AssertionError("the long reads fit the group kernel")
+    before = sam_launches()
+    got = sam_cuda.sam_cigar(*ops, SW_DEFAULT, 0, max_ops)
+    torch.cuda.synchronize()
+    after = sam_launches()
+    launched = {k: after[k] - before[k] for k in after}
+    bands = []
+    real = sam_cuda.banded_cigar_plain
+
+    def record(*args, **kwargs):
+        res = real(*args, **kwargs)
+        bands.append(tuple(x.cpu().numpy() for x in
+                           (args[1], args[3], args[5], res[2])))
+        return res
+    sam_cuda.banded_cigar_plain = record
+    try:
+        plain, plain_ms = timed_once(
+            lambda: sam_cuda.sam_cigar_plain(*ops, SW_DEFAULT, 0, max_ops))
+    finally:
+        sam_cuda.banded_cigar_plain = real
+    same = cigar_columns_equal(got, plain)
+    err = max(int((got[k].long() - plain[k].long()).abs().max())
+              for k in SAM_KEYS)
+    log(f"  sam_cigar_long ({n} reads of {read_len} bases): launches "
+        f"{launched}, equal to the plain version {same}")
+    if not same or launched["sam_cigar_long"] < 1 or launched["sam_cigar"] \
+            or launched["sam_band"]:
+        raise AssertionError("the long reads did not run sam_cigar_long "
+                             "or differ from the plain version")
+    g = {k: got[k].cpu().numpy() for k in SAM_KEYS}
+    cells, nbytes = sam_cigar_work(c, ops[5].cpu().numpy(),
+                                   ops[6].cpu().numpy(), g, bands)
+    plain_ms, ms, reads = turns(
+        plain_ms,
+        lambda: sam_cuda.sam_cigar_plain(*ops, SW_DEFAULT, 0, max_ops),
+        lambda: sam_cuda.sam_cigar(*ops, SW_DEFAULT, 0, max_ops), 2)
+    bound_ms, bound_by = sw_bound(cells, nbytes)
+    log(f"  timing sam_cigar_long (in turns {reads} ms): kernel {ms:.4f} "
+        f"ms, {cells} cells; bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / ms:.2%} of it; plain {plain_ms:.1f} ms")
+    return {"name": "sam_cigar_long", "route": "cuda",
+            "source": "kslam_tpu_torch/csrc/sam.cu",
+            "replaces": "csrc/ssw_batch.cc:229 (kslam_ssw_cigar_batch, "
+                        "host C++; no TPU kernel), for reads past the "
+                        "group kernel's key",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "cells_needed": cells,
+            "phase3_launches": launched["sam_cigar_long"],
+            "shape": f"{n} alignments, reads of {read_len} bp",
+            "turns_ms": reads, "library_ms": None}
 
 
 def copied_reads(rng, genome, starts, rc, l: int):
@@ -1525,9 +1820,12 @@ def zero_sam_launches() -> None:
 
 
 def check_sam(name: str, launched: dict, path=None) -> None:
-    """A SAM run on the card must launch both SAM kernels."""
+    """A SAM run on the card must launch sam_cigar's passes and band
+    kernels and sam_diff (its 150 bp reads fit sam_cigar's group kernel:
+    sam_cigar_long may stay at 0)."""
     log(f"  {name}: SAM kernel launches {launched}")
-    if min(launched.values()) == 0:
+    if min(launched["sam_cigar"], launched["sam_band"],
+           launched["sam_diff"]) == 0:
         raise AssertionError(f"{name}: a SAM kernel was not launched: "
                              f"{launched}")
     SAM_PATHS[path or name] = dict(launched)
@@ -1872,26 +2170,38 @@ def watch_sam_path():
 
 
 def time_run_kernels(overlaps, filled, batch, gindex, config) -> dict:
-    """sam_cigar's and sam_diff's own times (CUDA events) on a SAM run's
-    alignments, from the operands the run built (sam_columns.operands),
-    and the forward and reverse passes' cells sam_cigar needs on them
-    (its banded DP's cells not counted)."""
+    """sam_cigar's and sam_diff's own times (CUDA events; sam_cigar's band
+    kernel by torch.profiler) on a SAM run's alignments, from the
+    operands the run built (sam_columns.operands),
+    the device memory their first calls take over the operands (outputs
+    and scratch), and the forward and reverse passes' cells sam_cigar
+    needs on them (its banded DP's cells not counted)."""
     from kslam_tpu_torch.io import sam_columns
     from kslam_tpu_torch.ops import sam_cuda
     dev = torch.device("cuda")
     t, host = sam_columns.operands(overlaps, filled, batch, gindex, config,
                                    dev)
     cargs = sam_columns.cigar_args(t, host, config)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     cig = sam_cuda.sam_cigar(*cargs)
     dargs = sam_columns.diff_args(t, cig)
+    sam_cuda.sam_diff(*dargs)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base
     cigar_ms = cuda_ms(lambda: sam_cuda.sam_cigar(*cargs), 3)
+    band_ms = named_ms(kernel_device_ms(
+        lambda: sam_cuda.sam_cigar(*cargs), 3), "sam_band_kernel")
     diff_ms = cuda_ms(lambda: sam_cuda.sam_diff(*dargs), 5)
     out = {k: cig[k].cpu().numpy() for k in SAM_KEYS}
     cells, _ = sam_cigar_work(
         {"lengths": host["lengths"], "read_id": host["read_id"],
          "rc": host["rc"]}, host["wlen"], host["ref_start"], out, [])
     return {"alignments": len(overlaps), "sam_cigar_ms": cigar_ms,
-            "sam_diff_ms": diff_ms, "pass_cells": cells}
+            "sam_band_ms": band_ms, "sam_diff_ms": diff_ms,
+            "pass_cells": cells,
+            "kernels_peak_bytes": scratch}
 
 
 def check_sam_columns(kept, sam_path: str, sample: int = 20000,
@@ -1940,8 +2250,10 @@ def check_sam_columns(kept, sam_path: str, sample: int = 20000,
             f"{timing['sam_cigar_ms']:.4f} ms "
             f"({timing['pass_cells'] / timing['sam_cigar_ms'] / 1e6:.1f} "
             f"GCUPS over the forward and reverse passes' "
-            f"{timing['pass_cells']} cells), sam_diff "
-            f"{timing['sam_diff_ms']:.4f} ms")
+            f"{timing['pass_cells']} cells; its band kernel "
+            f"{timing['sam_band_ms']:.4f} ms by torch.profiler), sam_diff "
+            f"{timing['sam_diff_ms']:.4f} ms; the two calls' device "
+            f"memory over their operands: {timing['kernels_peak_bytes']} B")
         counts["timed"] += 1
         RUN_TIMES.append(timing)
         ops = np.where(live, nat["cigar_buf"][:, :width] & 15, 0)
@@ -2062,8 +2374,8 @@ def phase_sam(ctx, tmp: str):
         f"({n_reads / wall * 60:.0f} reads/min), {n_lines} SAM lines; "
         f"stage seconds {json.dumps(sec)}")
     log(f"  stages: {json.dumps(stages)}")
-    log(f"  peak device memory {peak / 2**30:.2f} GiB, SW launches "
-        f"{launches}")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB ({peak} B), SW "
+        f"launches {launches}")
     log(f"  R1 primary lines on the planted genome within 5 of the "
         f"planted position: {hits}/{len(g)} ({frac:.4%})")
     sam_s = stages.get("sam_output", {}).get("seconds", 0.0)
@@ -3498,8 +3810,7 @@ def main() -> int:
     # generators of their own: phases 4-5 draw their data from rng alone
     align = phase_align(np.random.default_rng(args.seed + 1), dev)
     phase_join_kernels(np.random.default_rng(args.seed + 2), dev)
-    sam_cigar_line, sam_diff_line = phase_sam_kernels(
-        np.random.default_rng(args.seed + 3), dev)
+    sam_lines = phase_sam_kernels(np.random.default_rng(args.seed + 3), dev)
     # the fused launches of the 1.6 Gbp runs: one per batch of 32,768
     # candidates
     expect = 4 if (args.mbp, args.pairs) == (1600, 131072) else None
@@ -3579,12 +3890,13 @@ def main() -> int:
         "shape": "B=32768 Lq=Lr=160 (flat window)",
         "chunked": chunked, "library_ms": None}]}
     kernels["kernels"] += join_kernel_entries(joins)
-    for line in (sam_cigar_line, sam_diff_line):
+    for line in sam_lines:
         kernel = line["name"]
         kernels["kernels"].append(dict(
             line, launches=sam_kernel_launches[kernel],
             launches_by_path={p: v[kernel] for p, v in SAM_PATHS.items()},
-            phase6_ms=[t[f"{kernel}_ms"] for t in RUN_TIMES],
+            phase6_ms=[t[f"{kernel}_ms"] for t in RUN_TIMES
+                       if f"{kernel}_ms" in t],
             phase6_alignments=[t["alignments"] for t in RUN_TIMES],
             sam_output_s=ctx_sam_output, checked=ctx_checked))
     log(f"chip_smoke: all phases passed in "

@@ -1,12 +1,13 @@
 """A synthetic mix of SAM alignments, richer in indels and clipped
 windows than planted reads, for the checks of
 ops/sam_cuda.py's kernels (chip_smoke.py, tests/test_torch_cuda.py,
-tests/test_torch_sam_columns.py): reads copied from a few entries with
+tests/test_torch_sam_columns.py, tests/test_torch_sam_passes.py): reads
+copied from a few entries with
 substitutions and indels, forward or reverse-complemented, some with N,
 lowercase or IUPAC bases, some at an entry's end or before its start
 (rel_pos < 0), each with the overlap columns phase A hands the SAM text
-(read_id, entry_id, rel_pos, rc; ref_begin, query_begin, query_end).
-All from a numpy Generator."""
+(read_id, entry_id, rel_pos, rc; ref_begin, query_begin, query_end);
+and a tie-heavy mix on tandem repeats.  All from a numpy Generator."""
 
 from __future__ import annotations
 
@@ -119,6 +120,25 @@ def alignments(rng, ents, n: int, read_len: int = 150, stride: int = 160,
             "rel_pos": rel, "rc": rc}
 
 
+def tandem_alignments(rng, n: int, read_len: int = 150):
+    """n alignments on tandem repeats (alignments()' columns): each of 3
+    entries repeats a unit of 2-6 bases, each read the unit of its entry
+    with half its bases changed (forward or rc), so every period scores
+    below 0 and the max is a short run of matches that many cells reach:
+    the tie-break decides every end."""
+    units = [ACGT[rng.integers(0, 4, int(rng.integers(2, 7)))]
+             for _ in range(3)]
+    ents = [np.resize(u, max(10 * read_len, 1500)) for u in units]
+    c = alignments(rng, ents, n, read_len=read_len, end_share=0.0,
+                   odd_share=0.0)
+    for k in range(n):
+        u = units[c["entry_id"][k]].copy()
+        at = rng.choice(len(u), -(-len(u) // 2), replace=False)
+        u[at] = ACGT[(np.searchsorted(ACGT, u[at]) + 1) % 4]
+        c["reads"][k, :c["lengths"][k]] = np.resize(u, c["lengths"][k])
+    return c
+
+
 def phase_a_ends(rng, ref_begin, query_begin, query_end, lengths,
                  share: float = 0.1):
     """ref_begin, query_begin, query_end as phase A gives them: the
@@ -153,10 +173,11 @@ def diff_operands(c: dict, cigar_buf, cigar_len, ref_begin, query_begin,
                   query_end, device, pad: int = 16):
     """sam_cuda.sam_diff's operands for the columns of alignments(), the
     cigar columns given (numpy) and phase A's ends (phase_a_ends), on
-    device."""
+    device; the windows pad bytes past the longest read, rounded up to
+    16 B words as io/sam_columns rounds them."""
     dwin, dlen, _ = sam_cuda.diff_windows(
         c["bases"], c["offsets"], c["entry_id"], ref_begin,
-        int(c["lengths"].max()) + pad)
+        -(-(int(c["lengths"].max()) + pad) // 16) * 16)
     return tuple(_put(a, device) for a in (
         c["reads"], c["quality"], c["lengths"], c["lengths"], c["read_id"],
         c["rc"], query_begin, query_end, cigar_buf, cigar_len, dwin,

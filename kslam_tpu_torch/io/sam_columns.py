@@ -131,7 +131,8 @@ def operands(overlaps, filled, batch, gindex, config, device):
         win, wlen, ref_start = sam_cuda.native_windows(
             bases, offs, c["entry_id"], c["rel_pos"], qlen, width)
         dwin, dlen, elen_rel = sam_cuda.diff_windows(
-            bases, offs, c["entry_id"], c["ref_begin"], width + WINDOW_PAD)
+            bases, offs, c["entry_id"], c["ref_begin"],
+            -(-(width + WINDOW_PAD) // 16) * 16)   # rows of 16 B words
     with metrics.stage("sam_upload", items=len(overlaps)):
         t = {k: _put(v, dev) for k, v in (
             ("reads", batch.bases), ("qual", batch.quality),

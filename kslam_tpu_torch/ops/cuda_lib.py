@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels as one shared library.
 
 Every kslam_tpu_torch/csrc/*.cu (sw_forward.cu: the SW kernels; join.cu:
-the join's three lookups; sam.cu: the SAM path's sam_cigar and sam_diff)
-is compiled for sm_90a by its own nvcc process,
-all started together, and the objects are linked into one shared
+the join's three lookups; sam.cu: the SAM path's sam_cigar,
+sam_cigar_long and sam_diff; both SW files include sw_group.cuh's group
+wavefront) is compiled for sm_90a by its own nvcc process, all started
+together, and the objects are linked into one shared
 library with a plain C interface, loaded with ctypes.  The build runs at
 first use, once per hash of the flags and the sources (the *.cuh
 headers included), into csrc/build/<hash>/, which .gitignore lists.  A
@@ -36,12 +37,17 @@ _ENTRY_POINTS = {
     + [_CI] * 4 + [_VP],
     "kslam_window_join": [_VP, _CLL] + [_VP] * 6 + [_CLL] + [_CI] * 5
     + [_VP],
-    "kslam_sam_cigar": [_VP, _VP, _CLL] + [_VP] * 3 + [_CLL] + [_VP] * 3
-    + [_CLL] + [_CI] * 6 + [_VP] * 7 + [_CI] + [_VP] * 2 + [_CI] * 4
-    + [_VP],
+    "kslam_sam_cigar": [_VP, _VP, _CLL] + [_VP] * 3 + [_CLL, _CLL]
+    + [_VP] * 3 + [_CLL] + [_CI] * 6 + [_VP] * 7 + [_CI] * 8 + [_VP],
+    "kslam_sam_band": [_VP, _VP, _CLL] + [_VP] * 3 + [_CLL, _CLL]
+    + [_VP] * 3 + [_CLL] + [_CI] * 6 + [_VP] * 7 + [_CI, _VP, _CI, _CI, _VP,
+                                                     _VP, _CI, _VP, _CI, _VP],
+    "kslam_sam_cigar_long": [_VP, _VP, _CLL] + [_VP] * 3 + [_CLL]
+    + [_VP] * 3 + [_CLL] + [_CI] * 6 + [_VP] * 7 + [_CI] + [_VP] * 2
+    + [_CI] * 4 + [_VP],
     "kslam_sam_diff": [_VP] * 4 + [_CLL] + [_VP] * 6 + [_CLL] + [_VP] * 2
     + [_CLL] + [_VP] * 3 + [_CLL, _VP, _CI, _VP, _VP, _CI] + [_VP] * 4
-    + [_CI] * 3 + [_VP],
+    + [_CI, _VP],
 }
 
 

@@ -30,44 +30,64 @@ else []`): only the soft clips.
 Neither replaces a Pallas kernel: they replace host C++ (OpenMP) and host
 Python.  What bounds them on the H100: sam_cigar is integer work, the
 forward and reverse passes over ~2 x 150 x 150 cells an alignment (the
-banded DP is a few cells a row); one thread an alignment keeps its H and
-E columns in shared memory, interleaved by thread, and its direction
-bytes (one packed byte a band cell) and band rows in device scratch, a
-slab an alignment.  sam_diff reads a read, its quality and a window and
-writes two short texts: bytes.  Both launch in batches of BATCH
-alignments.  An alignment whose band outgrows its slab (W_CAP), or
-whose cigar outgrows OPS_CAP runs, is flagged (REDO) and relaunched once
-with a slab that holds any band its lengths allow; sam_diff writes its
+banded DP is a few cells a row).  A batch is two launches: the passes,
+sw_align's register wavefront (csrc/sw_group.cuh) with the native
+windows staged as score words in shared memory, a group of G lanes an
+alignment; then the band kernel, a group of 8 lanes an alignment in the
+warp's lockstep, each band row's cells over the lanes, its band rows and
+direction bytes in shared memory for half-widths up to W_CAP, the
+traceback on the group's first lane.  sam_diff reads a read, its quality
+and a window and writes two short texts: bytes, and a float64 chain; one
+lane an alignment, a warp's lanes in lockstep over their staged rows.
+Both launch in batches of BATCH alignments.  The rows whose
+band outgrows W_CAP (REDO) or whose cigar outgrows OPS_CAP runs
+(REDO_OPS) are taken with one nonzero and get the band kernel again, a
+warp an alignment, its region in a device slab for any band their
+lengths allow (the attempts already made skipped); sam_diff writes its
 texts up to the caps given and reports the lengths they need, and the
 caller relaunches the rows that did not fit.
 
+A batch past the group kernels' limits (reads' stride or windows over
+1024, match x stride over 2047: the packed key's fields; gap_open <
+gap_extend, where the wavefront's F differs from the native's) runs
+sam_cigar_long, one thread an alignment (the native code's loops in its
+order, its band in device slabs), counted under its own name.
+
 On a CPU tensor the wrappers run the plain versions (vectorised over
 alignments); on a CUDA tensor they launch the kernel or raise: there is
-no fallback.  SAM_LAUNCHES counts the launches of each kernel.
+no fallback.  SAM_LAUNCHES counts the launches of each __global__
+function where it is launched: sam_cigar the passes kernel's, sam_band
+the band kernel's (the first launch and the relaunch), sam_cigar_long
+and sam_diff their own.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .cuda_lib import load_library
 from .encode import _SW_TABLE
+from .sw_cuda import SMEM_BLOCK_LIMIT, launch_config
 
-SAM_LAUNCHES = {"sam_cigar": 0, "sam_diff": 0}
+SAM_LAUNCHES = {"sam_cigar": 0, "sam_band": 0, "sam_cigar_long": 0,
+                "sam_diff": 0}
 
 ABORTED = -1          # the banded DP's overflow abort: score zeroed
 FILTERED = -2         # score under score_filter: no cigar
-REDO = -3             # the kernel's slab or run buffer was too small
+REDO = -3             # the band outgrew the kernel's region
+REDO_OPS = -5         # the runs outgrew the kernel's run buffer (< REDO)
 NO_CIGAR = -4         # sam_diff input: the cigar is None
 
 BATCH = 1 << 15       # alignments a launch
-W_CAP = 8             # band half-width the first launch's slab holds
+W_CAP = 4             # band half-width the first launch's region holds
 OPS_CAP = 32          # cigar runs the first launch's buffer holds
 TEXT_CAP = 64         # CIGAR and MD bytes a row, first launch
-THREADS_DIFF = 128
-SMEM_TARGET = 200 * 1024   # shared memory a sam_cigar block may use
-MAX_SW_THREADS = 32
+GROUP_THREADS = 128   # sam_cigar's passes: a block, at most (kGroupThreads)
+LONG_SMEM_TARGET = 200 * 1024  # sam_cigar_long: shared memory a block
+LONG_THREADS = 32     # sam_cigar_long: threads a block, at most
 WIDTH_LIMIT = 1 << 31      # ssw.c:631-642: width_d * read_len * 3
 GROUP_CELLS = 1 << 20      # plain banded DP: one group up to this size
 
@@ -77,25 +97,38 @@ for _a, _b in zip(b"ACTGactg", b"TGACtgac"):
     _RC_TABLE[_a] = _b
 
 
+# the constant tables on each device they were asked for: made once, so
+# that a launch does not wait on a host copy
+_TABLES = {}
+
+
+def _table(name: str, device, make):
+    key = (name, torch.device(device))
+    if key not in _TABLES:
+        _TABLES[key] = make()
+    return _TABLES[key]
+
+
 def sw_table(device) -> torch.Tensor:
     """encode.sw_codes_np's ASCII -> SW code table (csrc/ssw_batch.cc's
     kSw.t) as a uint8 [256] tensor."""
-    return torch.as_tensor(_SW_TABLE).to(device)
+    return _table("sw", device, lambda: torch.as_tensor(_SW_TABLE).to(
+        device))
 
 
 def rc_table(device) -> torch.Tensor:
     """reverse_complement_str's complement of one byte, uint8 [256]."""
-    return torch.as_tensor(_RC_TABLE).to(device)
+    return _table("rc", device, lambda: torch.as_tensor(_RC_TABLE).to(
+        device))
 
 
 def quality_tables(device):
     """io/sam's _MATCH_TABLE and _MISMATCH_TABLE as float64 [100]
     tensors (the walk's own values, not recomputed)."""
     from ..io import sam as sam_io
-    return (torch.tensor(sam_io._MATCH_TABLE, dtype=torch.float64,
-                         device=device),
-            torch.tensor(sam_io._MISMATCH_TABLE, dtype=torch.float64,
-                         device=device))
+    return _table("quality", device, lambda: tuple(
+        torch.tensor(t, dtype=torch.float64, device=device)
+        for t in (sam_io._MATCH_TABLE, sam_io._MISMATCH_TABLE)))
 
 
 def native_max_ops(read_lengths) -> int:
@@ -822,57 +855,169 @@ def _raise_on(err: int, name: str, n: int) -> None:
                            f"alignments)")
 
 
-def sw_threads(qmax: int) -> int:
-    """Threads a sam_cigar block: at most MAX_SW_THREADS, as many as
-    SMEM_TARGET bytes of shared memory hold at 9 bytes a query row."""
-    return max(1, min(MAX_SW_THREADS, SMEM_TARGET // (9 * max(qmax, 1))))
-
-
-def slab_bytes(qmax: int, w_cap: int) -> int:
-    """Direction bytes of one alignment's slab."""
-    return qmax * (2 * w_cap + 1)
+def takes_group(stride: int, width: int, params) -> bool:
+    """Whether sam_cigar's group kernel takes reads of this stride and
+    windows of this width: the packed key holds rows and columns up to
+    1024 and scores up to 2047, and the wavefront's F equals the
+    native's for gap_open >= gap_extend.  Else sam_cigar_long."""
+    match, _, go, ge = (int(x) for x in params)
+    return max(stride, 1) <= 1024 and width <= 1024 and \
+        match * max(stride, 1) <= 2047 and go >= ge
 
 
 def band_ints(w_cap: int) -> int:
-    """Ints of one band row (three a slab)."""
+    """Ints of one band row (three an alignment)."""
     return max(2 * w_cap + 5, 8)
+
+
+def band_region(qmax: int, w_cap: int) -> int:
+    """Bytes of one alignment's band region: three band rows, then the
+    direction bytes of reads up to qmax bases at half-widths up to w_cap,
+    rounded up to 16."""
+    return -(-(12 * band_ints(w_cap) + qmax * (2 * w_cap + 1)) // 16) * 16
+
+
+class CigarConfig(NamedTuple):
+    group: int        # G lanes an alignment (a power of two <= 32)
+    rows: int         # R query rows a lane
+    threads: int      # threads a block
+    blocks: int       # grid size
+    col_stride: int   # score words an alignment's window
+    smem: int         # dynamic shared memory a block, bytes
+
+
+def cigar_config(n: int, stride: int, width: int) -> CigarConfig:
+    """The passes kernel's launch for n alignments of reads of `stride`
+    bytes and windows of `width` bases: G, R and the score words'
+    stride as sw_align takes them for Lq = stride, Lr = width
+    (sw_cuda.launch_config), GROUP_THREADS a block, cut until the block's
+    shared memory (score words, extents, the code table) fits.  The band
+    kernel's launch (8 lanes an alignment, its region band_region(stride,
+    W_CAP)) is the library's own."""
+    sw = launch_config(max(n, 1), max(stride, 1), max(width, 1))
+    threads = GROUP_THREADS
+
+    def smem(t):
+        return -(-((t // sw.group) * (sw.stride + 2) * 4 + 256) // 16) * 16
+    while threads > max(sw.group, 32) and smem(threads) > SMEM_BLOCK_LIMIT:
+        threads //= 2
+    return CigarConfig(sw.group, sw.rows, threads,
+                       -(-n // (threads // sw.group)), sw.stride,
+                       smem(threads))
+
+
+def long_threads(qmax: int) -> int:
+    """Threads a sam_cigar_long block: at most LONG_THREADS, as many as
+    LONG_SMEM_TARGET bytes of shared memory hold at 9 bytes a query
+    row."""
+    return max(1, min(LONG_THREADS, LONG_SMEM_TARGET // (9 * max(qmax, 1))))
+
+
+def relaunch_width(qmax: int) -> int:
+    """The band half-width of sam_cigar's relaunch: any band reads of at
+    most qmax bases allow (it starts at most at qmax + 1 and doubles at
+    most once past qmax - 1)."""
+    return 2 * qmax + 2
+
+
+def _at(t, lo):
+    return t.data_ptr() + lo * t.stride(0) * t.element_size()
+
+
+_CIGAR_OUT = ("score", "ref_begin", "ref_end", "query_begin", "query_end",
+              "cigar_buf", "cigar_len")
 
 
 def _cigar_launch(reads, read_len, tab, win, wlen, read_id, rc, ref_start,
                   params, score_filter, max_ops, out, w_cap, ops_cap,
                   batch: int) -> None:
-    """sam_cigar launches over out's rows in batches (scratch for one
-    batch, reused); out: the output tensors (cigar_buf [n, ops_cap])."""
+    """sam_cigar launches over out's rows in batches: the passes, then the
+    band kernel with its regions in shared memory; out: the output
+    tensors (cigar_buf [n, ops_cap])."""
     index, stream = _device_and_stream(reads)
     lib = load_library()
     n = read_id.shape[0]
-    qmax = reads.shape[1]
-    threads = sw_threads(qmax)
-    rows = min(batch, n)
-    dev = reads.device
-    dir_slab = torch.empty(rows * slab_bytes(qmax, w_cap), dtype=torch.uint8,
-                           device=dev)
-    band = torch.empty(rows * 3 * band_ints(w_cap), dtype=torch.int32,
-                       device=dev)
+    stride, width = reads.shape[1], win.shape[1]
     match, mismatch, go, ge = (int(x) for x in params)
-
-    def at(t, lo):
-        return t.data_ptr() + lo * t.stride(0) * t.element_size()
-
+    cfg = cigar_config(min(batch, n), stride, width)
     for lo in range(0, n, batch):
         cnt = min(batch, n - lo)
         err = lib.kslam_sam_cigar(
             reads.data_ptr(), read_len.data_ptr(), reads.stride(0),
-            tab.data_ptr(), at(win, lo), at(wlen, lo), win.stride(0),
-            at(read_id, lo), at(rc, lo), at(ref_start, lo), cnt, match,
-            mismatch, go, ge, int(score_filter), int(max_ops),
-            *(at(out[k], lo) for k in ("score", "ref_begin", "ref_end",
-                                       "query_begin", "query_end",
-                                       "cigar_buf", "cigar_len")),
-            ops_cap, dir_slab.data_ptr(), band.data_ptr(), w_cap, qmax,
-            threads, index, stream)
+            tab.data_ptr(), _at(win, lo), _at(wlen, lo), win.stride(0),
+            width, _at(read_id, lo), _at(rc, lo), _at(ref_start, lo), cnt,
+            match, mismatch, go, ge, int(score_filter), int(max_ops),
+            *(_at(out[k], lo) for k in _CIGAR_OUT), ops_cap, w_cap,
+            cfg.group, cfg.rows, cfg.col_stride, cfg.threads, cfg.smem,
+            index, stream)
         _raise_on(err, "sam_cigar", cnt)
         SAM_LAUNCHES["sam_cigar"] += 1
+        SAM_LAUNCHES["sam_band"] += 1
+
+
+def _band_launch(reads, read_len, tab, win, wlen, read_id, rc, ref_start,
+                 params, score_filter, max_ops, out, runs, rows, w_cap,
+                 skip_w: int, batch: int):
+    """sam_cigar's band kernel alone on out's rows `rows` (int64), whose
+    score and ends hold their passes and whose cigar_len the REDO codes of
+    the first launch (a REDO row skips the attempts up to skip_w, which
+    failed there), half-widths up to w_cap: in batches, the regions in a
+    device slab for one batch (reused), row t's runs in runs[t] (zero past
+    them) and, when they fit, in out's cigar_buf.  Returns the rows left
+    flagged and the most runs of a row, as a device int32 [2]."""
+    index, stream = _device_and_stream(reads)
+    lib = load_library()
+    stride, width = reads.shape[1], win.shape[1]
+    match, mismatch, go, ge = (int(x) for x in params)
+    stats = torch.zeros(2, dtype=torch.int32, device=reads.device)
+    n = rows.shape[0]
+    slab = torch.empty(min(batch, n) * band_region(stride, w_cap),
+                       dtype=torch.uint8, device=reads.device)
+    for lo in range(0, n, batch):
+        cnt = min(batch, n - lo)
+        err = lib.kslam_sam_band(
+            reads.data_ptr(), read_len.data_ptr(), reads.stride(0),
+            tab.data_ptr(), win.data_ptr(), wlen.data_ptr(), win.stride(0),
+            width, read_id.data_ptr(), rc.data_ptr(), ref_start.data_ptr(),
+            cnt, match, mismatch, go, ge, int(score_filter), int(max_ops),
+            *(out[k].data_ptr() for k in _CIGAR_OUT[:5]), _at(runs, lo),
+            out["cigar_len"].data_ptr(), runs.shape[1], slab.data_ptr(),
+            w_cap, skip_w, _at(rows, lo), out["cigar_buf"].data_ptr(),
+            out["cigar_buf"].shape[1], stats.data_ptr(), index, stream)
+        _raise_on(err, "sam_band", cnt)
+        SAM_LAUNCHES["sam_band"] += 1
+    return stats
+
+
+def _cigar_long_launch(reads, read_len, tab, win, wlen, read_id, rc,
+                       ref_start, params, score_filter, max_ops, out, w_cap,
+                       ops_cap, batch: int) -> None:
+    """sam_cigar_long launches over out's rows in batches (device slabs
+    for one batch, reused)."""
+    index, stream = _device_and_stream(reads)
+    lib = load_library()
+    n = read_id.shape[0]
+    qmax = reads.shape[1]
+    threads = long_threads(qmax)
+    rows = min(batch, n)
+    dev = reads.device
+    dir_slab = torch.empty(rows * qmax * (2 * w_cap + 1), dtype=torch.uint8,
+                           device=dev)
+    band_rows = torch.empty(rows * 3 * band_ints(w_cap), dtype=torch.int32,
+                            device=dev)
+    match, mismatch, go, ge = (int(x) for x in params)
+    for lo in range(0, n, batch):
+        cnt = min(batch, n - lo)
+        err = lib.kslam_sam_cigar_long(
+            reads.data_ptr(), read_len.data_ptr(), reads.stride(0),
+            tab.data_ptr(), _at(win, lo), _at(wlen, lo), win.stride(0),
+            _at(read_id, lo), _at(rc, lo), _at(ref_start, lo), cnt, match,
+            mismatch, go, ge, int(score_filter), int(max_ops),
+            *(_at(out[k], lo) for k in _CIGAR_OUT), ops_cap,
+            dir_slab.data_ptr(), band_rows.data_ptr(), w_cap, qmax,
+            threads, index, stream)
+        _raise_on(err, "sam_cigar_long", cnt)
+        SAM_LAUNCHES["sam_cigar_long"] += 1
 
 
 def _cigar_outputs(n: int, ops_cap: int, dev):
@@ -898,13 +1043,6 @@ def check_cigar_operands(reads, read_len, read_id, rc, win, wlen,
     _check("ref_start", ref_start, torch.int32, 1, dev, n)
 
 
-def relaunch_width(qmax: int) -> int:
-    """The band half-width of sam_cigar's relaunch: any band reads of at
-    most qmax bases allow (it starts at most at qmax + 1 and doubles at
-    most once past qmax - 1)."""
-    return 2 * qmax + 2
-
-
 def sam_cigar(reads, read_len, read_id, rc, win, wlen, ref_start, params,
               score_filter: int = 0, max_ops: int = 0):
     """The cigar columns of kslam_ssw_cigar_batch (report_cigar on) for
@@ -915,8 +1053,10 @@ def sam_cigar(reads, read_len, read_id, rc, win, wlen, ref_start, params,
     call's (native_max_ops).  Returns {score, ref_begin, ref_end,
     query_begin, query_end, cigar_len: int32 [n], cigar_buf: int32 [n,
     C]}, C >= every row's runs.  CPU tensors: the plain version; CUDA
-    tensors: the kernel (batches of BATCH, then one relaunch of the rows
-    it flagged), never the plain version."""
+    tensors: the passes kernel and the band kernel (sam_cigar_long past
+    takes_group), in batches of BATCH, then the band kernel again on the
+    rows it flagged, with their regions in a device slab; never the plain
+    version."""
     if reads.device.type == "cpu":
         return sam_cigar_plain(reads, read_len, read_id, rc, win, wlen,
                                ref_start, params, score_filter, max_ops)
@@ -927,36 +1067,54 @@ def sam_cigar(reads, read_len, read_id, rc, win, wlen, ref_start, params,
     out = _cigar_outputs(n, OPS_CAP, dev)
     if n == 0:
         return out
-    _cigar_launch(reads, read_len, tab, win, wlen, read_id, rc, ref_start,
-                  params, score_filter, max_ops, out, W_CAP, OPS_CAP, BATCH)
-    redo = torch.nonzero(out["cigar_len"] == REDO).flatten()
+    qmax = reads.shape[1]
+    group = takes_group(qmax, win.shape[1], params)
+    operands = (reads, read_len, tab, win, wlen, read_id, rc, ref_start,
+                params, score_filter, max_ops)
+    if group:
+        _cigar_launch(*operands, out, W_CAP, OPS_CAP, BATCH)
+    else:
+        _cigar_long_launch(*operands, out, W_CAP, OPS_CAP, BATCH)
+    # REDO and REDO_OPS are the codes under REDO (NO_CIGAR is sam_diff's)
+    redo = torch.nonzero(out["cigar_len"] <= REDO).flatten()
     if redo.numel() == 0:
         return out
-    qmax = reads.shape[1]
     w_big = relaunch_width(qmax)
     ops_big = max(max_ops, 1)
-    sub = _cigar_outputs(redo.numel(), ops_big, dev)
-    per = slab_bytes(qmax, w_big) + 12 * band_ints(w_big)
-    _cigar_launch(reads, read_len, tab, win[redo].contiguous(),
-                  wlen[redo].contiguous(), read_id[redo].contiguous(),
-                  rc[redo].contiguous(), ref_start[redo].contiguous(),
-                  params, score_filter, max_ops, sub, w_big, ops_big,
-                  max(1, (256 << 20) // per))
-    still = int((sub["cigar_len"] == REDO).sum())
+    batch = max(1, (256 << 20) // band_region(qmax, w_big))
+    if group:
+        # any band their lengths allow (the attempts up to W_CAP skipped),
+        # in a device slab; runs that fit OPS_CAP land in out's cigar_buf
+        # at once
+        runs = torch.empty(redo.numel(), ops_big, dtype=torch.int32,
+                           device=dev)
+        still, longest = _band_launch(*operands, out, runs, redo, w_big,
+                                      W_CAP, batch).tolist()
+    else:
+        # the long path computes the rows again, on their own operands
+        sub = _cigar_outputs(redo.numel(), ops_big, dev)
+        _cigar_long_launch(reads, read_len, tab, *(
+            t[redo].contiguous() for t in (win, wlen, read_id, rc,
+                                           ref_start)), params, score_filter,
+            max_ops, sub, w_big, ops_big, batch)
+        runs = sub.pop("cigar_buf")
+        for k, v in sub.items():
+            out[k][redo] = v
+        still, longest = torch.stack([(sub["cigar_len"] <= REDO).sum(),
+                                      sub["cigar_len"].max().long()]
+                                     ).tolist()
     if still:
         raise RuntimeError(f"sam_cigar: {still} alignments outgrew the "
                            f"relaunch's band {w_big} or its {ops_big} runs")
-    width = max(OPS_CAP, int(sub["cigar_len"].max()))
+    if longest <= OPS_CAP and group:
+        return out
+    width = max(OPS_CAP, longest)
     if width > OPS_CAP:
         wide = torch.zeros(n, width, dtype=torch.int32, device=dev)
         wide[:, :OPS_CAP] = out["cigar_buf"]
         out["cigar_buf"] = wide
-    for k, v in sub.items():
-        if k == "cigar_buf":
-            out[k][redo] = v[:, :width] if v.shape[1] >= width else \
-                torch.nn.functional.pad(v, (0, width - v.shape[1]))
-        else:
-            out[k][redo] = v
+    out["cigar_buf"][redo] = runs[:, :width] if runs.shape[1] >= width else \
+        torch.nn.functional.pad(runs, (0, width - runs.shape[1]))
     return out
 
 
@@ -1015,24 +1173,19 @@ def sam_diff(reads, qual, read_len, qual_len, read_id, rc, query_begin,
         out[k] = torch.empty(n, dtype=torch.int32, device=dev)
     comp = rc_table(dev)
     lib = load_library()
-
-    def at(t, lo):
-        return t.data_ptr() + lo * t.stride(0) * t.element_size()
-
     for lo in range(0, n, BATCH):
         cnt = min(BATCH, n - lo)
-        blocks = -(-cnt // THREADS_DIFF)
         err = lib.kslam_sam_diff(
             reads.data_ptr(), qual.data_ptr(), read_len.data_ptr(),
             qual_len.data_ptr(), reads.stride(0), comp.data_ptr(),
-            at(read_id, lo), at(rc, lo), at(query_begin, lo),
-            at(query_end, lo), at(cigar_buf, lo), cigar_buf.stride(0),
-            at(cigar_len, lo), at(dwin, lo), dwin.stride(0), at(dlen, lo),
+            _at(read_id, lo), _at(rc, lo), _at(query_begin, lo),
+            _at(query_end, lo), _at(cigar_buf, lo), cigar_buf.stride(0),
+            _at(cigar_len, lo), _at(dwin, lo), dwin.stride(0), _at(dlen, lo),
             match_tbl.data_ptr(), mismatch_tbl.data_ptr(), cnt,
-            at(out["cigar_txt"], lo), cig_cap, at(out["cigar_n"], lo),
-            at(out["md_txt"], lo), md_cap, at(out["md_n"], lo),
-            at(out["nm"], lo), at(out["lp"], lo), at(out["ref_need"], lo),
-            THREADS_DIFF, blocks, index, stream)
+            _at(out["cigar_txt"], lo), cig_cap, _at(out["cigar_n"], lo),
+            _at(out["md_txt"], lo), md_cap, _at(out["md_n"], lo),
+            _at(out["nm"], lo), _at(out["lp"], lo), _at(out["ref_need"], lo),
+            index, stream)
         _raise_on(err, "sam_diff", cnt)
         SAM_LAUNCHES["sam_diff"] += 1
     return out

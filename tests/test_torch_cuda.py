@@ -9,7 +9,8 @@ DB's columns derived on the card (db/device_columns.py) against the host
 versions bit for bit, and the join's four backends (sector table, bucket table, prefix window,
 exact search) against each other on CUDA,
 the sharded phase A of a mesh on CUDA against the CPU, the float32 pseudo-assembly on CUDA
-against the CPU, the SAM path's sam_cigar and sam_diff kernels against
+against the CPU, the SAM path's sam_cigar (its group kernel, its passes
+against sw_align, its long-read path) and sam_diff kernels against
 their plain versions, and the CUDA CLI runs (classification and SAM, and
 over four chunks at both chunk-pipeline depths) against the CPU ones.
 They import neither jax nor kslam_tpu, so they run on the card's
@@ -37,6 +38,7 @@ from kslam_tpu_torch.eval.sw_windows import n_windows
 from kslam_tpu_torch.ops import encode, join, join_cuda, kmers, match, \
     sam_cuda, screen, screens_dev, sw, sw_cuda
 from kslam_tpu_torch.parallel import dist
+from tests.torch_sam_staging import pass_columns, stage_plain
 
 torch.set_num_threads(1)
 
@@ -1016,6 +1018,10 @@ def test_sam_kernels_match_plain(cuda_device, monkeypatch, caps):
     got = sam_cuda.sam_cigar(*sam_cases.cigar_operands(c, cuda_device),
                              SW_DEFAULT, 0, max_ops)
     assert sam_cuda.SAM_LAUNCHES["sam_cigar"] >= before["sam_cigar"] + 1
+    # the first launch's band kernel, then the relaunch's (most rows
+    # with tiny caps)
+    assert sam_cuda.SAM_LAUNCHES["sam_band"] >= before["sam_band"] + (
+        2 if w_cap == 1 else 1)
     want = sam_cuda.sam_cigar(*sam_cases.cigar_operands(c, "cpu"),
                               SW_DEFAULT, 0, max_ops)
     for k in ("score", "ref_begin", "ref_end", "query_begin", "query_end",
@@ -1052,3 +1058,106 @@ def test_sam_cigar_raises_past_relaunch(cuda_device, monkeypatch):
         sam_cuda.sam_cigar(*sam_cases.cigar_operands(c, cuda_device),
                            SW_DEFAULT, 0, sam_cuda.native_max_ops(
                                c["lengths"]))
+
+
+@pytest.mark.cuda
+def test_sam_kernels_on_tandem_repeats(cuda_device):
+    """The tie-heavy mix: tandem repeats on both sides, where many cells
+    reach the max and the key's tie-break decides every end; sam_cigar
+    and sam_diff equal to their plain versions."""
+    rng = np.random.default_rng(53)
+    c = sam_cases.tandem_alignments(rng, 2048)
+    max_ops = sam_cuda.native_max_ops(c["lengths"])
+    got, want = (sam_cuda.sam_cigar(*sam_cases.cigar_operands(c, dev),
+                                    SW_DEFAULT, 0, max_ops)
+                 for dev in (cuda_device, "cpu"))
+    for k in ("score", "ref_begin", "ref_end", "query_begin", "query_end",
+              "cigar_len"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    width = int(want["cigar_len"].max())
+    assert torch.equal(got["cigar_buf"][:, :width].cpu(),
+                       want["cigar_buf"][:, :width])
+    buf = want["cigar_buf"][:, :max(width, 1)].numpy()
+    rb, qb, qe = (want[k].numpy() for k in ("ref_begin", "query_begin",
+                                           "query_end"))
+    outs = [sam_cuda.sam_diff(*sam_cases.diff_operands(
+        c, buf, want["cigar_len"].numpy(), rb.astype(np.int64), qb, qe,
+        dev)) for dev in (cuda_device, "cpu")]
+    for k in outs[1]:
+        assert torch.equal(outs[0][k].cpu(), outs[1][k]), k
+
+
+@pytest.mark.cuda
+def test_sam_passes_equal_sw_align(cuda_device):
+    """sam_cigar's passes (its score and ends: the band kernel only zeroes
+    an aborted row's score) equal sw_align's kernel on the operands
+    staged as sam_cigar stages them, and the plain version's ends: the
+    group wavefront they share gives one answer.  One call launches the
+    passes kernel and the band kernel once each, both counted."""
+    c, _ = _sam_columns(4096, 59)
+    ops = sam_cases.cigar_operands(c, cuda_device)
+    reads, read_len, read_id, rc, win, wlen, ref_start = ops
+    max_ops = sam_cuda.native_max_ops(c["lengths"])
+    before = dict(sam_cuda.SAM_LAUNCHES)
+    got = sam_cuda.sam_cigar(*ops, SW_DEFAULT, 0, max_ops)
+    launched = {k: sam_cuda.SAM_LAUNCHES[k] - before[k] for k in before}
+    assert launched["sam_cigar"] == 1 and launched["sam_band"] >= 1
+    assert launched["sam_cigar_long"] == 0
+    q, r, _, _, _ = stage_plain(reads, read_len, read_id, rc, win, wlen,
+                                SW_DEFAULT)
+    al = sw_cuda.sw_align_batch(q.int(), r.int(), *SW_DEFAULT)
+    cols = pass_columns(al, read_len.long()[read_id.long()], wlen, rc,
+                        ref_start)
+    want = sam_cuda.sam_cigar(*sam_cases.cigar_operands(c, "cpu"),
+                              SW_DEFAULT, 0, max_ops)
+    live = got["cigar_len"] != sam_cuda.ABORTED
+    assert torch.equal(got["score"].long()[live], cols[0][live])
+    # the band kernel zeroes an aborted row's score, as the plain one does
+    assert (got["score"][~live] == 0).all()
+    for k, v in zip(("ref_begin", "ref_end", "query_begin", "query_end"),
+                    cols[1:]):
+        assert torch.equal(got[k].long(), v), k
+        assert torch.equal(v.cpu(), want[k].long()), k
+
+
+@pytest.mark.cuda
+def test_sam_long_reads(cuda_device):
+    """Reads of 1,100 bases, past the group kernel's key: sam_cigar runs
+    sam_cigar_long (counted under its own name) and equals its plain
+    version; sam_diff on them (rows past its staged 1 KB and MD texts
+    past their staged 256 B in device memory) equals its plain
+    version."""
+    rng = np.random.default_rng(61)
+    ents = sam_cases.entries(rng, n_entries=2, length=8000)
+    c = sam_cases.alignments(rng, ents, 64, read_len=1100, stride=1104,
+                             sub=0.1, indel_share=0.5)
+    max_ops = sam_cuda.native_max_ops(c["lengths"])
+    ops = sam_cases.cigar_operands(c, cuda_device)
+    assert not sam_cuda.takes_group(ops[0].shape[1], ops[4].shape[1],
+                                    SW_DEFAULT)
+    before = dict(sam_cuda.SAM_LAUNCHES)
+    got = sam_cuda.sam_cigar(*ops, SW_DEFAULT, 0, max_ops)
+    assert sam_cuda.SAM_LAUNCHES["sam_cigar_long"] >= \
+        before["sam_cigar_long"] + 1
+    assert sam_cuda.SAM_LAUNCHES["sam_cigar"] == before["sam_cigar"]
+    assert sam_cuda.SAM_LAUNCHES["sam_band"] == before["sam_band"]
+    want = sam_cuda.sam_cigar(*sam_cases.cigar_operands(c, "cpu"),
+                              SW_DEFAULT, 0, max_ops)
+    for k in ("score", "ref_begin", "ref_end", "query_begin", "query_end",
+              "cigar_len"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    width = int(want["cigar_len"].max())
+    assert torch.equal(got["cigar_buf"][:, :width].cpu(),
+                       want["cigar_buf"][:, :width])
+    buf = want["cigar_buf"][:, :max(width, 1)].numpy()
+    rb, qb, qe = sam_cases.phase_a_ends(
+        rng, want["ref_begin"].numpy(), want["query_begin"].numpy(),
+        want["query_end"].numpy(), c["lengths"])
+    outs = [sam_cuda.sam_diff(*sam_cases.diff_operands(
+        c, buf, want["cigar_len"].numpy(), rb, qb, qe, dev), 2048, 2048)
+        for dev in (cuda_device, "cpu")]
+    for k in outs[1]:
+        assert torch.equal(outs[0][k].cpu(), outs[1][k]), k
+    # walks past the staged 1 KB of a row and texts past the staged 256 B
+    assert int(outs[1]["ref_need"].max()) > 1024
+    assert 256 < int(outs[1]["md_n"].max()) <= 2048
