@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import K
+from ..utils import metrics
 from . import join, join_cuda
 from .kmers import FLIP
 from .rows import lex_perm, shift1
@@ -309,7 +310,9 @@ def compact_overlaps(overlaps: Overlaps) -> Overlaps:
     """Move the kept rows to the front (stable) and drop the rest, so SW
     aligns exactly the candidates."""
     perm = torch.argsort((~overlaps.valid).to(torch.int8), stable=True)
-    sel = perm[:int(overlaps.count)]
+    n = int(overlaps.count)
+    metrics.count("sw_candidates", n)
+    sel = perm[:n]
     return overlaps._replace(
         read_id=overlaps.read_id[sel], entry_id=overlaps.entry_id[sel],
         rel_pos=overlaps.rel_pos[sel], rc=overlaps.rc[sel],

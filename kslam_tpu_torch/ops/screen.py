@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import metrics
 from . import encode
 
 K16 = 16
@@ -191,10 +192,12 @@ def label_low_complexity_reads(batch, cutoff: int, device):
     (KMerLookupTable.h:280-298; flags only, no removal -- the
     reference's removal is commented out)."""
     out = []
-    for lo in range(0, batch.num_reads, _BLOCK):
-        codes = encode.kmer_codes(
-            torch.as_tensor(batch.bases[lo:lo + _BLOCK]).to(device))
-        n3 = distinct_3mer_count(
-            codes, torch.as_tensor(batch.lengths[lo:lo + _BLOCK]).to(device))
-        out.append((n3 < cutoff).cpu().numpy())
+    with metrics.stage("low_complexity"):
+        for lo in range(0, batch.num_reads, _BLOCK):
+            codes = encode.kmer_codes(
+                torch.as_tensor(batch.bases[lo:lo + _BLOCK]).to(device))
+            n3 = distinct_3mer_count(
+                codes,
+                torch.as_tensor(batch.lengths[lo:lo + _BLOCK]).to(device))
+            out.append((n3 < cutoff).cpu().numpy())
     return np.concatenate(out) if out else np.zeros(0, bool)

@@ -15,6 +15,7 @@ import numpy as np
 
 from ..db.genbank import Gene, GenbankIndex
 from ..db.taxonomy import TaxonomyDB
+from ..utils import metrics
 from .pairing import ReadPairAlignments
 
 
@@ -127,6 +128,7 @@ def fetch_classify_arrays(b):
     `n` rows cross; the returned mask is all-true."""
     cols = b.cols
     n = int(cols.valid.sum())
+    metrics.count("pairs_kept", n)
     return tuple(c[:n].cpu().numpy() for c in
                  (cols.valid, cols.group, cols.entry_id, cols.ref_start,
                   cols.ref_end, b.read_lca))

@@ -271,15 +271,19 @@ def rescore_chains(cols: screens_dev.PairCols, perm, cseg
     if not len(sel):
         return cols
     rows = perm[sel]
-    sc = (cols.combined_score[rows] & 0xFFFFFFFF).cpu().numpy() \
-        .astype(np.uint32)
-    new = rescore_sorted_host(
-        np.ones(len(sc), bool), cseg[sel].cpu().numpy().astype(np.int32),
-        sc, cols.ref_start[rows].cpu().numpy(),
-        cols.ref_end[rows].cpu().numpy())
-    new_i64 = torch.as_tensor(
-        new.astype(np.uint32).view(np.int32).astype(np.int64),
-        device=rows.device)
+    with metrics.stage("phase_b_rescore"):
+        sc = (cols.combined_score[rows] & 0xFFFFFFFF).cpu().numpy() \
+            .astype(np.uint32)
+        cs = cseg[sel].cpu().numpy().astype(np.int32)
+        new = rescore_sorted_host(
+            np.ones(len(sc), bool), cs, sc,
+            cols.ref_start[rows].cpu().numpy(),
+            cols.ref_end[rows].cpu().numpy())
+        metrics.count("rows", len(cs))
+        metrics.count("chains", int(np.count_nonzero(cs[1:] != cs[:-1])) + 1)
+        new_i64 = torch.as_tensor(
+            new.astype(np.uint32).view(np.int32).astype(np.int64),
+            device=rows.device)
     return apply_rescored(cols, rows, new_i64)
 
 

@@ -212,7 +212,9 @@ def process_chunk(batch: ReadBatch, db: align.DeviceDB,
         with metrics.stage("insert_model"):
             parts = []
             for a in a_list:
-                ins = a.pairs.insert_size[:int(a.pairs.count)].cpu().numpy()
+                n = int(a.pairs.count)
+                metrics.count("pairs_emitted", n)
+                ins = a.pairs.insert_size[:n].cpu().numpy()
                 ins = ins[ins != 0].astype(np.int64)
                 parts.append(np.where(ins >= 2**31, ins - 2**32, ins))
             allins = np.concatenate(parts)
@@ -274,6 +276,14 @@ class ChunkPipeline:
     on the way out the pipeline finishes the tails of the chunks already
     fed, joins both threads, and raises the first error in chunk order.
 
+    Chunks are numbered in read order.  While a torch profiler is live
+    on the thread that calls feed(), each chunk's work is traced
+    (utils/metrics spans): its root spans `read` (reader thread),
+    `feed` and `tail` (tail thread) hold the stages they run, and the
+    calling thread's waits are the spans `wait_reader` (for the next
+    chunk's read) and `wait_tail` (for a pending tail).  Depth 1 runs
+    the same spans on the calling thread.
+
     Left out of kslam_tpu's ChunkPipeline: the adaptive transfer caps
     (observe_cap and its hints), the split phase B (enqueue, fetch,
     finish) and the compact classification transfers.  They size static
@@ -296,7 +306,8 @@ class ChunkPipeline:
         self.tail = tail
         self._reader = self._tails = None
         self._source = None          # read()'s (chunks, prepare)
-        self._ahead = None           # the next chunk's read (a future)
+        self._ahead = None           # the next chunk's (read future, origin)
+        self._reads = self._fed = 0  # chunks read, fed
         self._pending: collections.deque = collections.deque()  # tails
         self._tail_failed = False
 
@@ -318,70 +329,93 @@ class ChunkPipeline:
         depth 1 made here, with packed None (process_chunk packs)."""
         if self.depth == 1:
             while True:
-                with metrics.stage("fastq_parse"):
-                    batch = next(chunks, None)
+                origin = (self._reads, None) if metrics.profiler_live() \
+                    else None
+                self._reads += 1
+                with metrics.traced("calling", origin), \
+                        metrics.stage("read"):
+                    with metrics.stage("fastq_parse"):
+                        batch = next(chunks, None)
+                    if batch is not None:
+                        batch = prepare(batch)
                 if batch is None:
                     return
-                yield prepare(batch), None
+                yield batch, None
         self._reader = concurrent.futures.ThreadPoolExecutor(
             1, thread_name_prefix="kslam-chunk-reader")
         self._source = chunks, prepare
         while True:
             if self._ahead is None:      # no feed() since the last chunk
                 self._read_ahead()
-            item = self._ahead.result()
+            future, origin = self._ahead
+            with metrics.traced("calling", origin), \
+                    metrics.stage("wait_reader"):
+                item = future.result()
             self._ahead = None
             if item is None:
                 return
             yield item
 
     def _read_ahead(self) -> None:
-        self._ahead = self._reader.submit(self._read_one, *self._source)
+        origin = metrics.handoff(self._reads)
+        self._reads += 1
+        self._ahead = (self._reader.submit(self._read_one, *self._source,
+                                           origin), origin)
 
-    def _read_one(self, chunks, prepare):
-        with metrics.stage("fastq_parse"):
-            batch = next(chunks, None)
-        if batch is None:
-            return None
-        batch = prepare(batch)
-        with metrics.stage("pack_reads"):
-            return batch, pack_chunk(batch, self.config, self.mesh)
+    def _read_one(self, chunks, prepare, origin):
+        with metrics.traced("reader", origin), metrics.stage("read"):
+            with metrics.stage("fastq_parse"):
+                batch = next(chunks, None)
+            if batch is None:
+                return None
+            batch = prepare(batch)
+            with metrics.stage("pack_reads"):
+                return batch, pack_chunk(batch, self.config, self.mesh)
 
     def feed(self, batch: ReadBatch, meta: dict, packed=None) -> None:
         """Start the next chunk's read, run this chunk's device work and
         fetch here, and hand its tail on.  meta["want_objects"]: fetch
         the object model (chunk_objects) rather than the classification
-        columns."""
-        if self.depth > 1:
-            self._wait(self.depth - 2)
-            self._read_ahead()
-        b, ov_cols = process_chunk(batch, self.db, self.config,
-                                   self.entry_taxids, self.lca_tables,
-                                   mesh=self.mesh,
-                                   sharded_db=self.sharded_db,
-                                   packed=packed)
-        if meta.get("want_objects", True):
-            result = chunk_objects(b, ov_cols, batch)
-        else:
-            with metrics.stage("result_fetch"):
-                result = classify.fetch_classify_arrays(b)
-        del b, ov_cols          # the chunk's device buffers
-        if self.depth == 1:
-            self.tail(meta, result)
-            return
-        if self._tails is None:
-            self._tails = concurrent.futures.ThreadPoolExecutor(
-                1, thread_name_prefix="kslam-chunk-tail")
-        self._pending.append(self._tails.submit(self._tail, [meta, result]))
+        columns.  Traced (with its read and tail) while a torch profiler
+        is live on this thread."""
+        no = self._fed
+        self._fed += 1
+        origin = (no, None) if metrics.profiler_live() else None
+        with metrics.traced("calling", origin), metrics.stage("feed"):
+            metrics.count("reads", batch.num_reads)
+            if self.depth > 1:
+                self._wait(self.depth - 2)
+                self._read_ahead()
+            b, ov_cols = process_chunk(batch, self.db, self.config,
+                                       self.entry_taxids, self.lca_tables,
+                                       mesh=self.mesh,
+                                       sharded_db=self.sharded_db,
+                                       packed=packed)
+            if meta.get("want_objects", True):
+                result = chunk_objects(b, ov_cols, batch)
+            else:
+                with metrics.stage("result_fetch"):
+                    result = classify.fetch_classify_arrays(b)
+            del b, ov_cols          # the chunk's device buffers
+            if self.depth == 1:
+                with metrics.stage("tail"):
+                    self.tail(meta, result)
+                return
+            if self._tails is None:
+                self._tails = concurrent.futures.ThreadPoolExecutor(
+                    1, thread_name_prefix="kslam-chunk-tail")
+            self._pending.append(self._tails.submit(
+                self._tail, [meta, result], metrics.handoff(no)))
 
-    def _tail(self, job):
+    def _tail(self, job, origin):
         # emptied here, so that the chunk is freed when this returns,
         # before its future completes and feed() reads ahead again
         meta, result = job
         job.clear()
         try:
             if not self._tail_failed:
-                self.tail(meta, result)
+                with metrics.traced("tail", origin), metrics.stage("tail"):
+                    self.tail(meta, result)
         except BaseException:
             self._tail_failed = True
             raise
@@ -390,7 +424,8 @@ class ChunkPipeline:
         """Wait until at most n tails are pending, raising the first
         tail's error."""
         while len(self._pending) > n:
-            self._pending[0].result()
+            with metrics.stage("wait_tail"):
+                self._pending[0].result()
             self._pending.popleft()
 
     def drain(self) -> None:

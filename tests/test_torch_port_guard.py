@@ -62,7 +62,12 @@ def test_port_imports_without_jax():
 COPIES = [
     ("config", "config", (), (), None),
     ("utils/logging", "utils/logging", (), (), None),
-    ("utils/metrics", "utils/metrics", (), ("profile_to",), None),
+    # the port's stage timers also keep spans and take a lock
+    ("utils/metrics", "utils/metrics", ("reset", "count", "stage",
+                                        "summary"),
+     ("profile_to", "gcups"),
+     ("StageStats", "_STAGES", "_COUNTERS", "reset", "count", "stage",
+      "summary", "log_summary", "profile_to", "gcups")),
     ("db/genbank", "db/genbank", (), (), None),
     ("db/taxonomy", "db/taxonomy", (), (), None),
     ("db/kmer_index", "db/kmer_index", ("index_words_np", "join_columns"),
