@@ -204,13 +204,13 @@ def max_allowed_insert_size(reads_and_pairs: List[ReadPairAlignments]) -> int:
     return max_allowed_insert_size_from_sizes(sizes)
 
 
-def max_allowed_insert_size_from_sizes(sizes: List[int]) -> int:
+def max_allowed_insert_size_from_sizes(sizes) -> int:
     """PairedOverlap.h:300-360: percentile spike detection, IQR fallback,
     then mean + 6 sigma of the truncated distribution.  `sizes` are the
     nonzero insert sizes already reinterpreted as int32 (the reference
-    collects uint32 fields into an int32 vector)."""
-    import numpy as np
-    sizes = np.sort(np.asarray(list(sizes), dtype=np.int64))
+    collects uint32 fields into an int32 vector): an int64 array, or a
+    list of ints."""
+    sizes = np.sort(np.asarray(sizes, dtype=np.int64))
     n = len(sizes)
     if n == 0:
         return U32 - 1
@@ -231,16 +231,17 @@ def max_allowed_insert_size_from_sizes(sizes: List[int]) -> int:
     kept = sizes[(sizes >= lower) & (sizes <= upper)]
     if len(kept) == 0:
         return U32 - 1  # 0/0 -> nan -> UINT_MAX (PairedOverlap.h:359)
-    # exact integer sums: int64 is safe only while count * max^2 cannot
-    # wrap, so the guard is count-aware (len * max^2 < 2^62); otherwise
-    # fall back to arbitrary-precision Python ints
-    if len(kept) and \
-            len(kept) * int(np.abs(kept).max()) ** 2 < (1 << 62):
-        ksum = int(kept.sum())
-        ksq = int((kept * kept).sum())
-    else:
-        ksum = sum(int(s) for s in kept)
-        ksq = sum(int(s) * int(s) for s in kept)
+    # exact integer sums in int64 with no Python int per size: kept is
+    # >= 0 and < 2^32, squared by 16-bit halves (v^2 = hi^2 2^32 +
+    # 2 hi lo 2^16 + lo^2, each term < 2^32), so no sum of a block of
+    # 2^30 wraps
+    ksum = ksq = 0
+    for i in range(0, len(kept), 1 << 30):
+        part = kept[i:i + (1 << 30)]
+        hi, lo = part >> 16, part & 0xFFFF
+        ksum += int(part.sum())
+        ksq += (int((hi * hi).sum()) << 32) + \
+            (int((hi * lo).sum()) << 17) + int((lo * lo).sum())
     mean = ksum / len(kept)
     sq = ksq / len(kept)
     var = sq - mean * mean

@@ -218,8 +218,8 @@ def process_chunk(batch: ReadBatch, db: align.DeviceDB,
                 ins = ins[ins != 0].astype(np.int64)
                 parts.append(np.where(ins >= 2**31, ins - 2**32, ins))
             allins = np.concatenate(parts)
-            max_insert = pairing.max_allowed_insert_size_from_sizes(
-                sorted(int(x) for x in allins))
+            metrics.count("insert_sizes", len(allins))
+            max_insert = pairing.max_allowed_insert_size_from_sizes(allins)
         log(f"max allowed insert size {max_insert}")
     with metrics.stage("phase_b"):
         return device_path.run_chunk_phase_b(

@@ -20,6 +20,7 @@ from kslam_tpu.pipeline import align as jalign, device_path as jdp, \
 from kslam_tpu_torch.db import sector_table
 from kslam_tpu_torch.ops import encode, kmers, lca
 from kslam_tpu_torch.pipeline import align, device_path, run
+from kslam_tpu_torch.utils import metrics
 from tests.test_torch_sector_join import sector_from_bucket
 
 torch.set_num_threads(1)
@@ -223,3 +224,37 @@ def test_chunk_split_over_batches_matches_jax(setup, paired):
         np.testing.assert_array_equal(t_rows[k], j_rows[k])
     for k in (1, 2):                            # which mates are present
         np.testing.assert_array_equal(t_rows[k] >= 0, j_rows[k] >= 0)
+
+
+def test_chunk_insert_model_matches_jax(setup, monkeypatch, capsys):
+    """process_chunk over several device batches logs the max allowed
+    insert size the JAX package's model gives over the chunk's sizes,
+    and counts insert_sizes: the nonzero insert sizes of its pairs."""
+    taxdb, gindex, kidx, jdb, tdb, batch = setup
+    outs = []
+    phase_a = device_path.phase_a
+
+    def keep(*args, **kw):
+        outs.append(phase_a(*args, **kw))
+        return outs[-1]
+    monkeypatch.setattr(device_path, "phase_a", keep)
+    small = PipelineConfig(read_batch=16, sw_batch=1 << 10,
+                           max_pairs_per_batch=1 << 12)
+    metrics.reset()
+    capsys.readouterr()
+    run.process_chunk(
+        batch, tdb, small, torch.as_tensor(gindex.taxonomy_ids.astype(
+            np.int64)), lca.build_device_tables(taxdb, "cpu"))
+    assert len(outs) > 1
+    sizes = []
+    for a in outs:
+        ins = a.pairs.insert_size[:int(a.pairs.count)].numpy()
+        sizes += [int(x) - 2**32 if x >= 2**31 else int(x)
+                  for x in ins if x != 0]
+    assert sizes
+    assert metrics.counters()["insert_sizes"] == len(sizes)
+    want = jpairing.max_allowed_insert_size_from_sizes(sorted(sizes))
+    logged = [line.split("\t")[1] for line in
+              capsys.readouterr().err.splitlines()
+              if "max allowed insert size" in line]
+    assert logged == [f"max allowed insert size {want}"]

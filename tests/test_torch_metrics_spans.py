@@ -307,6 +307,7 @@ def test_traced_cli_keeps_the_counts_and_writes_the_same(depth, genbank):
         assert got == total[name] > 0, (name, stage)
     counted("sw_candidates", "phase_a_seed")
     counted("pairs_emitted", "insert_model")
+    counted("insert_sizes", "insert_model")
     counted("pairs_kept", "result_fetch")
     counted("rows", "phase_b_rescore")
     counted("chains", "phase_b_rescore")

@@ -85,7 +85,9 @@ COPIES = [
     ("pipeline/run", "pipeline/run", (), (),
      ("process_batch", "_fill_cigars")),
     ("io/xml_results", "io/xml_results", (), (), None),
-    ("pipeline/pairing", "pipeline/pairing", (), (), None),
+    # the insert model sorts and sums an int64 array, no int per size
+    ("pipeline/pairing", "pipeline/pairing",
+     ("max_allowed_insert_size_from_sizes",), (), None),
     ("pipeline/classify", "pipeline/classify", ("fetch_classify_arrays",),
      (), None),
     ("ops/encode", "ops/encode", (), (),
